@@ -1,0 +1,226 @@
+"""Batched row-streaming local aligners (qmax / dmax / constrained SW) in
+PyTorch: the plain versions of `acoss_tpu.ops.alignment`, plus the
+`*_best` dispatchers that send CUDA batches to the hand-written kernels
+of `alignment_cuda`.
+
+The recurrences have NO intra-row dependency: every predecessor of cell
+(i, j) lives in rows i-1, i-2 (and i-3 for dmax), so a whole row is one
+vector op over shifted previous rows, batched over pairs. The plain
+versions loop over the M rows in Python.
+
+Inputs are padded to (B, M, N) with per-pair true lengths; cells outside
+(m_len, n_len) are masked to 0, so S may hold anything in the padding.
+
+Semantics (the reference's `SequenceAlignment.c`):
+- qmax: match +1 else a state-dependent gap penalty clamped at 0; cells
+  start at i, j >= 2; a pair with a side shorter than 3 scores 0.
+- dmax: five predecessors; the long paths add the S values they skip;
+  cells start at i, j >= 3; a side shorter than 4 scores 0.
+- swconstrained: +-1 match with affine gaps (opening -0.5, extension
+  -0.7); cells start at i, j >= 2; a side shorter than 3 scores 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _shift(x: torch.Tensor, k: int) -> torch.Tensor:
+    """shift(x, k)[..., j] = x[..., j - k], zeros shifted in at the front."""
+    if k == 0:
+        return x
+    out = torch.zeros_like(x)
+    out[..., k:] = x[..., :-k]
+    return out
+
+
+def _prep(S, m_len, n_len):
+    S = torch.as_tensor(S)
+    if S.ndim == 2:
+        S = S[None]
+    B, M, N = S.shape
+    m_len = torch.as_tensor(m_len, device=S.device).to(torch.int64) \
+        .expand(B)
+    n_len = torch.as_tensor(n_len, device=S.device).to(torch.int64) \
+        .expand(B)
+    z = torch.zeros((B, N), dtype=torch.float32, device=S.device)
+    return S, M, N, m_len, n_len, z
+
+
+def _lengths_i32(S, m_len, n_len):
+    """(B,) int32 length tensors on S's device, as the kernels take them."""
+    B = S.shape[0]
+    return tuple(torch.as_tensor(t, device=S.device).to(torch.int32)
+                 .expand(B).contiguous() for t in (m_len, n_len))
+
+
+def _colmask(N, start, n_len):
+    j = torch.arange(N, device=n_len.device)[None, :]
+    return (j >= start) & (j < n_len[:, None])
+
+
+def qmax_batch(S, m_len, n_len, gap_onset: float = 0.5,
+               gap_extension: float = 0.5) -> torch.Tensor:
+    """Batched Serra 2009 Qmax scores.
+
+    Args:
+      S: (B, M, N) binary CRP (uint8/float).
+      m_len, n_len: (B,) true row/col counts.
+      gap_onset / gap_extension: penalty after a match / after a gap.
+
+    Returns: (B,) float32 max-cell scores (unnormalized; callers divide by
+    m_len + n_len).
+    """
+    S, M, N, m_len, n_len, z = _prep(S, m_len, n_len)
+    const_gap = gap_onset == gap_extension
+    colmask = _colmask(N, 2, n_len)
+    A, B2, GA, GB, best = z, z, z, z, z[:, 0]
+    for i in range(M):
+        sd = S[:, i].to(torch.float32)
+        p1 = _shift(A, 1)    # (i-1, j-1)
+        p2 = _shift(B2, 1)   # (i-2, j-1)
+        p3 = _shift(A, 2)    # (i-1, j-2)
+        pre = torch.maximum(torch.maximum(p1, p2), p3)
+        match = pre + 1.0
+        if const_gap:
+            gap = torch.clamp_min(pre - gap_extension, 0.0)
+            Gd = z
+        else:
+            gap = torch.clamp_min(torch.maximum(
+                torch.maximum(p1 - _shift(GA, 1), p2 - _shift(GB, 1)),
+                p3 - _shift(GA, 2)), 0.0)
+            Gd = torch.where(sd > 0, gap_onset, gap_extension)
+        Dd = torch.where(sd > 0, match, gap)
+        valid = colmask & ((i >= 2) & (i < m_len))[:, None]
+        Dd = torch.where(valid, Dd, 0.0)
+        best = torch.maximum(best, Dd.max(dim=-1).values)
+        A, B2, GA, GB = Dd, A, Gd, GA
+    ok = (m_len >= 3) & (n_len >= 3)
+    return torch.where(ok, best, 0.0)
+
+
+def dmax_batch(S, m_len, n_len, gap_onset: float = 0.5,
+               gap_extension: float = 0.5) -> torch.Tensor:
+    """Batched Chen 2017 Dmax scores: five predecessors; the
+    (i-2,j-1)/(i-1,j-2)/(i-3,j-1)/(i-1,j-3) paths add the intermediate S
+    values they skip over."""
+    S, M, N, m_len, n_len, z = _prep(S, m_len, n_len)
+    colmask = _colmask(N, 3, n_len)
+
+    def gamma(s):
+        return torch.where(s > 0, gap_onset, gap_extension)
+
+    # A/B2/B3 = D rows i-1, i-2, i-3; SA/SB/SC = S rows i-1, i-2, i-3.
+    A, B2, B3, SA, SB, SC, best = z, z, z, z, z, z, z[:, 0]
+    for i in range(M):
+        sd = S[:, i].to(torch.float32)
+        p1 = _shift(A, 1)                # D[i-1, j-1]
+        p2 = _shift(B2, 1) + SA          # D[i-2, j-1] + S[i-1, j]
+        p3 = _shift(A, 2) + _shift(sd, 1)  # D[i-1, j-2] + S[i, j-1]
+        p4 = _shift(B3, 1) + SB + SA     # D[i-3,j-1]+S[i-2,j]+S[i-1,j]
+        p5 = _shift(A, 3) + _shift(sd, 2) + _shift(sd, 1)
+        m5 = torch.maximum(torch.maximum(torch.maximum(p1, p2), p3),
+                           torch.maximum(p4, p5))
+        match = m5 + 1.0
+        gap = torch.maximum(
+            torch.maximum(
+                torch.maximum(p1 - gamma(_shift(SA, 1)),
+                              p2 - gamma(_shift(SB, 1))),
+                torch.maximum(p3 - gamma(_shift(SA, 2)),
+                              p4 - gamma(_shift(SC, 1)))),
+            torch.clamp_min(p5 - gamma(_shift(SA, 3)), 0.0))
+        Dd = torch.where(sd > 0, match, gap)
+        valid = colmask & ((i >= 3) & (i < m_len))[:, None]
+        Dd = torch.where(valid, Dd, 0.0)
+        best = torch.maximum(best, Dd.max(dim=-1).values)
+        A, B2, B3, SA, SB, SC = Dd, A, B2, sd, SA, SB
+    ok = (m_len >= 4) & (n_len >= 4)
+    return torch.where(ok, best, 0.0)
+
+
+def swconstrained_batch(S, m_len, n_len, gap_opening: float = -0.5,
+                        gap_extension: float = -0.7,
+                        match_score: float = 1.0,
+                        mismatch_score: float = -1.0) -> torch.Tensor:
+    """Batched constrained Smith-Waterman. For a, b >= 2:
+      MS = S[a,b] ? match : mismatch
+      D[a,b] = max(0, max over preds p in {(a-1,b-1),(a-2,b-1),(a-1,b-2)}
+                   of D[p] + MS + Delta(S[p], S[a,b]))
+    Delta(prev, cur) = 0 if cur > 0 else (gap_opening if prev > 0
+                                          else gap_extension).
+    """
+    S, M, N, m_len, n_len, z = _prep(S, m_len, n_len)
+    colmask = _colmask(N, 2, n_len)
+    A, B2, SA, SB, best = z, z, z, z, z[:, 0]
+    for i in range(M):
+        sd = S[:, i].to(torch.float32)
+        cur_match = sd > 0
+        ms = torch.where(cur_match, match_score, mismatch_score)
+
+        def delta(sprev):
+            return torch.where(
+                cur_match, 0.0,
+                torch.where(sprev > 0, gap_opening, gap_extension))
+
+        d1 = _shift(A, 1) + ms + delta(_shift(SA, 1))
+        d2 = _shift(B2, 1) + ms + delta(_shift(SB, 1))
+        d3 = _shift(A, 2) + ms + delta(_shift(SA, 2))
+        Dd = torch.clamp_min(
+            torch.maximum(torch.maximum(d1, d2), d3), 0.0)
+        valid = colmask & ((i >= 2) & (i < m_len))[:, None]
+        Dd = torch.where(valid, Dd, 0.0)
+        best = torch.maximum(best, Dd.max(dim=-1).values)
+        A, B2, SA, SB = Dd, A, sd, SA
+    ok = (m_len >= 3) & (n_len >= 3)
+    return torch.where(ok, best, 0.0)
+
+
+def qmax_batch_best(S, m_len, n_len, gap_onset: float = 0.5,
+                    gap_extension: float = 0.5) -> torch.Tensor:
+    """qmax on the CUDA kernel for a CUDA batch with equal gaps >= 0, else
+    the plain scan. gap >= 0 is the JAX package's guard (its mask-free TPU
+    kernel needs padded cells to decay); out of range takes the plain
+    scan on every device so that both packages agree."""
+    if S.is_cuda and gap_onset >= 0.0 and gap_extension >= 0.0:
+        if gap_onset != gap_extension:
+            raise NotImplementedError(
+                "unequal-gap qmax on CUDA needs the port of "
+                "alignment_pallas._qmax_kernel_uneq (ROADMAP Queue B, "
+                "kernel 8)")
+        from acoss_tpu_torch.ops import alignment_cuda
+        return alignment_cuda.qmax_batch_cuda(
+            S, *_lengths_i32(S, m_len, n_len), gap=gap_onset)
+    return qmax_batch(S, m_len, n_len, gap_onset=gap_onset,
+                      gap_extension=gap_extension)
+
+
+def dmax_batch_best(S, m_len, n_len, gap_onset: float = 0.5,
+                    gap_extension: float = 0.5) -> torch.Tensor:
+    """dmax on the CUDA kernel for a CUDA batch with equal gaps in
+    [0, 1] (the JAX package's guard), else the plain scan."""
+    if (S.is_cuda and gap_onset == gap_extension
+            and 0.0 <= gap_onset <= 1.0):
+        from acoss_tpu_torch.ops import alignment_cuda
+        return alignment_cuda.dmax_batch_cuda(
+            S, *_lengths_i32(S, m_len, n_len), gap=gap_onset)
+    return dmax_batch(S, m_len, n_len, gap_onset=gap_onset,
+                      gap_extension=gap_extension)
+
+
+def swconstrained_batch_best(S, m_len, n_len, gap_opening: float = -0.5,
+                             gap_extension: float = -0.7,
+                             match_score: float = 1.0,
+                             mismatch_score: float = -1.0) -> torch.Tensor:
+    """Constrained SW: the plain scan on the CPU. Its CUDA kernel is not
+    ported yet, so a CUDA batch inside the JAX guard (non-positive
+    mismatch and gaps) raises."""
+    in_range = not (mismatch_score > 0 or gap_opening > 0
+                    or gap_extension > 0)
+    if S.is_cuda and in_range:
+        raise NotImplementedError(
+            "swconstrained on CUDA needs the port of "
+            "alignment_pallas._sw_kernel (ROADMAP Queue B, kernel 7)")
+    return swconstrained_batch(
+        S, m_len, n_len, gap_opening=gap_opening,
+        gap_extension=gap_extension, match_score=match_score,
+        mismatch_score=mismatch_score)

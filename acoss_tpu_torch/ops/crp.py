@@ -1,0 +1,138 @@
+"""Cross-recurrence-plot math in PyTorch (the Serra09 subset of
+`acoss_tpu.ops.crp`).
+
+Every function takes optional leading batch dimensions, so one call covers
+a whole tile of song pairs (the JAX package vmaps per-pair functions
+instead). Ragged songs are padded to a common length and carry explicit
+per-pair lengths; padded cells of every CRP are zero.
+
+These are the plain versions: Serra09's per-pair path runs them, and on a
+CUDA tile with 0 < kappa < 1 the fused kernel of `crp_cuda` replaces the
+CSM -> window -> binarize chain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def get_csm(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Euclidean cross-similarity matrix between rows of X (..., M, d) and
+    Y (..., N, d): sqrt(max(|x|^2 + |y|^2 - 2 x.y, 0))."""
+    C = (torch.sum(X * X, dim=-1)[..., :, None]
+         + torch.sum(Y * Y, dim=-1)[..., None, :]
+         - 2.0 * torch.matmul(X, Y.transpose(-1, -2)))
+    return torch.sqrt(torch.clamp_min(C, 0.0))
+
+
+def get_csm_centered(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """`get_csm` after subtracting X's first row from BOTH point clouds:
+    exact in infinite precision, and it removes the fp32 cancellation of
+    the Gram trick when feature norms are large (HTK MFCCs' leading energy
+    term)."""
+    c = X[..., :1, :]
+    return get_csm(X - c, Y - c)
+
+
+def get_all_shift_scores(C1: torch.Tensor, C2: torch.Tensor) -> torch.Tensor:
+    """scores[..., s] = sum_b roll(C1, s)[b] * C2[b] over all circular
+    shifts s, as one matmul against the circulant of C1."""
+    n = C1.shape[-1]
+    ar = torch.arange(n, device=C1.device)
+    idx = (ar[None, :] - ar[:, None]) % n
+    circ = C1[..., idx]                      # circ[s, b] = C1[(b - s) % n]
+    return torch.matmul(circ, C2[..., :, None])[..., 0]
+
+
+def get_oti(C1: torch.Tensor, C2: torch.Tensor) -> torch.Tensor:
+    """Optimal transposition index of C1 w.r.t. C2 (the first maximum
+    over shifts on ties, as `jnp.argmax`)."""
+    return torch.argmax(get_all_shift_scores(C1, C2), dim=-1)
+
+
+def transpose_chroma(X: torch.Tensor, oti: torch.Tensor,
+                     n_chroma: int = 12) -> torch.Tensor:
+    """Circularly shift the chroma axis of X (..., n_chroma) by `oti`,
+    whose shape is X's leading batch shape (without the frame axis):
+    out[..., c] = X[..., (c - oti) % n_chroma]."""
+    oti = torch.as_tensor(oti, device=X.device)
+    idx = (torch.arange(n_chroma, device=X.device) - oti[..., None]) \
+        % n_chroma                                 # (..., n_chroma)
+    idx = idx[..., None, :].expand(X.shape)
+    return torch.gather(X, -1, idx)
+
+
+def sliding_csm_padded(D: torch.Tensor, win: int) -> torch.Tensor:
+    """Diagonal windowed RMS keeping the (..., M, N) shape:
+    S[i, j] = sqrt(sum_k D[i+k, j+k]^2), k < win, with zeros past the
+    edge (cells past length - win + 1 are garbage; callers mask them)."""
+    M, N = D.shape[-2:]
+    D2 = D * D
+    acc = D2.clone()
+    for k in range(1, win):
+        acc[..., :M - k, :N - k] = acc[..., :M - k, :N - k] + D2[..., k:, k:]
+    return torch.sqrt(acc)
+
+
+def _lengths(length, batch_shape, device) -> torch.Tensor:
+    return torch.as_tensor(length, device=device).to(torch.int64) \
+        .expand(batch_shape)
+
+
+def csm_to_binary(D: torch.Tensor, kappa: float, row_length=None,
+                  col_length=None) -> torch.Tensor:
+    """Binarize a CSM (..., M, N) by per-row nearest neighbours:
+
+      kappa == 0  -> all ones;
+      kappa < 1   -> round(kappa * valid columns) neighbours per row;
+      kappa >= 1  -> int(kappa) neighbours per row;
+
+    a row keeps every value <= its k-th smallest (ties kept), and a
+    rounded count of 0 selects nothing (an all-zero CRP). Rows/columns past
+    row_length/col_length are zero. Returns uint8."""
+    M, N = D.shape[-2:]
+    batch = D.shape[:-2]
+    dev = D.device
+    if kappa == 0:
+        B = torch.ones(D.shape, dtype=torch.bool, device=dev)
+    else:
+        ncols = _lengths(N if col_length is None else col_length, batch,
+                         dev)
+        if kappa < 1:
+            n_neighbs = torch.round(
+                ncols.to(torch.float32)
+                * torch.tensor(kappa, dtype=torch.float32, device=dev)
+            ).to(torch.int64)
+            kmax = min(max(int(round(kappa * N)) + 1, 1), N)
+        else:
+            n_neighbs = torch.full(batch, int(kappa), dtype=torch.int64,
+                                   device=dev)
+            kmax = min(max(int(kappa), 1), N)
+        Dm = D
+        if col_length is not None:
+            col_valid = torch.arange(N, device=dev) < ncols[..., None]
+            Dm = torch.where(col_valid[..., None, :], D,
+                             torch.finfo(D.dtype).max)
+        smallest = torch.sort(Dm, dim=-1).values
+        k = torch.clamp(n_neighbs, 1, kmax)
+        thresh = torch.gather(
+            smallest, -1,
+            (k - 1)[..., None, None].expand(batch + (M, 1)))
+        thresh = torch.where((n_neighbs > 0)[..., None, None], thresh,
+                             float("-inf"))
+        B = Dm <= thresh
+    if row_length is not None:
+        rl = _lengths(row_length, batch, dev)
+        B = B & (torch.arange(M, device=dev) < rl[..., None])[..., :, None]
+    if col_length is not None:
+        cl = _lengths(col_length, batch, dev)
+        B = B & (torch.arange(N, device=dev) < cl[..., None])[..., None, :]
+    return B.to(torch.uint8)
+
+
+def csm_to_binary_mutual(D: torch.Tensor, kappa: float, row_length=None,
+                         col_length=None) -> torch.Tensor:
+    """Mutual-kNN binarization: AND of the row-kNN of D and of D^T."""
+    B1 = csm_to_binary(D, kappa, row_length, col_length)
+    B2 = csm_to_binary(D.transpose(-1, -2), kappa, col_length, row_length)
+    return B1 * B2.transpose(-1, -2)

@@ -1,0 +1,52 @@
+"""Package-level properties of the port: it imports neither JAX nor the
+JAX package, and its kernel build fails loudly without nvcc."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from acoss_tpu_torch.ops import _build
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import acoss_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    acoss_tpu_torch.__path__, 'acoss_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'acoss_tpu' or m.startswith('acoss_tpu.'))\n"
+        "print(json.dumps({'modules': mods, 'bad': bad}))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    for m in ("acoss_tpu_torch.cli", "acoss_tpu_torch.ops.alignment_cuda",
+              "acoss_tpu_torch.ops.crp_cuda",
+              "acoss_tpu_torch.benchmarking.algorithms.serra09"):
+        assert m in out["modules"]
+
+
+def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "empty-bin"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(tmp_path / "build")
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_name_tracks_the_sources(tmp_path):
+    p = _build.library_path(tmp_path)
+    assert p.parent == tmp_path and p.name.startswith("libacoss_kernels_")
+    assert p == _build.library_path(tmp_path)
+    names = {s.name for s in _build.sources()}
+    assert {"alignment.cu", "crp.cu"} <= names
