@@ -1,16 +1,20 @@
 """Serra 2009 Qmax/Dmax, the flagship alignment algorithm (port of
-`acoss_tpu.benchmarking.algorithms.serra09` with `do_ssms=False`).
+`acoss_tpu.benchmarking.algorithms.serra09`).
 
 - global chroma for OTI (`get_oti` over 12 shifts);
 - chroma median-downsampled x40, mfcc mean-downsampled x40, both truncated
   to the common length n;
 - per pair: OTI-roll -> Euclidean CSM -> m=9 diagonal window ->
   mutual-kNN binarize (kappa=0.095) -> qmax & dmax, normalized by (M + N).
+- with `do_ssms`, a third channel: the Euclidean CSM of the MFCC
+  block-SSM scattering descriptors (`ops.ssm_features`, 20,736 floats a
+  row), binarized without a window.
 
 A (bi x bj) tile of the pair grid builds all its binary CRPs in one
 batched call per channel and runs ONE qmax and ONE dmax call over the
-2 x bi x bj stacked CRPs (chroma + mfcc share the alignment batch). On a
-CUDA tile with 0 < kappa < 1 the CRPs come from the fused CUDA kernel
+nf x bi x bj stacked CRPs (the channels share the alignment batch). On a
+CUDA tile with 0 < kappa < 1 the chroma and mfcc CRPs come from the fused
+CUDA kernel and the ssms CRPs from the matrix binarizer kernel
 (`ops.crp_cuda`); otherwise from the plain per-pair ops of `ops.crp`,
 the split the JAX package makes between its Pallas and XLA paths.
 """
@@ -23,9 +27,12 @@ import torch
 from acoss_tpu_torch.benchmarking.harness import CoverAlgorithm
 from acoss_tpu_torch.data.store import FeatureSet, pad_stack
 from acoss_tpu_torch.ops import alignment, crp
-from acoss_tpu_torch.ops.crp_cuda import (fused_binary_crp_batch,
+from acoss_tpu_torch.ops.crp_cuda import (binarize_matrix_batch,
+                                          binarize_matrix_ref,
+                                          fused_binary_crp_batch,
                                           fused_binary_crp_ref)
 from acoss_tpu_torch.ops.segment import uniform_downsample_batch
+from acoss_tpu_torch.ops.ssm_features import build_ssms_device
 
 
 def global_chroma(chroma: np.ndarray) -> np.ndarray:
@@ -44,21 +51,26 @@ class Serra09(CoverAlgorithm):
     def __init__(self, chroma_type: str = "hpcp", oti: bool = True,
                  kappa: float = 0.095, m: int = 9,
                  downsample_fac: int = 40, pad_to_multiple: int = 64,
-                 do_ssms: bool = False):
-        if do_ssms:
-            raise NotImplementedError(
-                "Serra09 do_ssms=True needs the MFCC-SSM scattering "
-                "descriptors and the matrix binarizer, not ported yet "
-                "(ROADMAP Queue A, slice 3)")
+                 do_ssms: bool = False, ssm_win_mul: int = 2,
+                 ssm_res: int = 64):
         self.chroma_type = chroma_type
         self.oti = oti
         self.kappa = kappa
         self.m = m
         self.downsample_fac = downsample_fac
         self.pad_to_multiple = pad_to_multiple
+        self.do_ssms = do_ssms
+        self.ssm_win_mul = ssm_win_mul
+        self.ssm_res = ssm_res
+        if do_ssms:
+            self.SIMILARITY_TYPES = Serra09.SIMILARITY_TYPES + (
+                "ssms_scatter_qmax", "ssms_scatter_dmax")
 
     def extract_descriptors(self, fs: FeatureSet,
                             device: str | torch.device = "cuda") -> dict:
+        """Padded per-song descriptors: chroma, mfcc, gchroma and length as
+        numpy arrays, and with `do_ssms` the (N, L, 20736) ssms corpus as a
+        tensor already on `device`."""
         clen = fs.length(self.chroma_type)
         mlen = fs.length("mfcc_htk")
         chs = [fs.feature(self.chroma_type)[i, :clen[i]]
@@ -70,22 +82,35 @@ class Serra09(CoverAlgorithm):
                                           "median", device=device)
         mf_all = uniform_downsample_batch(mfs, self.downsample_fac,
                                           "mean", device=device)
-        chromas, mfccs, gchromas = [], [], []
+        chromas, mfccs, gchromas, full_mfccs = [], [], [], []
         for i in range(fs.n_songs):
             gchromas.append(global_chroma(chs[i]))
             n = min(ch_all[i].shape[0], mf_all[i].shape[0])
             chromas.append(ch_all[i][:n].astype(np.float32))
             mfccs.append(mf_all[i][:n].astype(np.float32))
+            if self.do_ssms:
+                full_mfccs.append(np.asarray(
+                    mfs[i][:n * self.downsample_fac], np.float32))
         Lmax = max(c.shape[0] for c in chromas)
         pad_to = -(-Lmax // self.pad_to_multiple) * self.pad_to_multiple
         chroma_arr, lengths = pad_stack(chromas, pad_to)
         mfcc_arr, _ = pad_stack(mfccs, pad_to)
-        return {
+        desc = {
             "chroma": chroma_arr,
             "mfcc": mfcc_arr,
             "gchroma": np.stack(gchromas).astype(np.float32),
             "length": lengths.astype(np.int32),
         }
+        if self.do_ssms:
+            # sequences of scattered MFCC block-SSMs, length-matched to
+            # M = n - m + 1 rows (`Serra09.py:126,146-152`), built on the
+            # device: at 20,736 floats a row the corpus never visits the
+            # host
+            desc["ssms"] = build_ssms_device(
+                full_mfccs, [max(int(n) - self.m + 1, 1) for n in lengths],
+                pad_to, self.downsample_fac, self.m * self.ssm_win_mul,
+                self.ssm_res, device=device)
+        return desc
 
     def _rolled_chroma(self, row: dict, col: dict) -> torch.Tensor:
         """(bi, bj, L, 12): each row song's chroma, OTI-rolled towards each
@@ -99,8 +124,8 @@ class Serra09(CoverAlgorithm):
         return crp.transpose_chroma(X, oti)
 
     def _pair_crps(self, row: dict, col: dict):
-        """Binary CRPs (chroma + mfcc) of every pair of the tile from the
-        plain per-pair ops: (Bc, Bm) each (bi, bj, L, L), l1e, l2e."""
+        """Binary CRPs of every pair of the tile from the plain per-pair
+        ops: (Bc, Bm[, Bs]) each (bi, bj, L, L), l1e, l2e."""
         m = self.m
         l1e = (row["length"] - m + 1)[:, None]
         l2e = (col["length"] - m + 1)[None, :]
@@ -116,12 +141,22 @@ class Serra09(CoverAlgorithm):
         # mfcc centered: HTK MFCCs carry a large leading energy term on
         # real audio, the classic fp32 Gram-cancellation case
         Bm = make(row["mfcc"][:, None], col["mfcc"][None], centered=True)
-        return (Bc, Bm), l1e, l2e
+        if not self.do_ssms:
+            return (Bc, Bm), l1e, l2e
+        # ssms rows are length-matched to the effective lengths already:
+        # no window (`Serra09.py:188-195`); centred by tile_scores
+        Bs = crp.csm_to_binary_mutual(
+            crp.get_csm_tile(row["ssms"], col["ssms"]), self.kappa, l1e,
+            l2e)
+        return (Bc, Bm, Bs), l1e, l2e
 
-    def _tile_crps_fused(self, row: dict, col: dict, crp_fn):
+    def _tile_crps_fused(self, row: dict, col: dict, crp_fn,
+                         binarize_fn=binarize_matrix_batch):
         """All (bi x bj) binary CRPs of the chroma (OTI-rolled) and mfcc
         channels from `crp_fn` (the fused kernel's wrapper or its plain
-        version); the same structure as `_pair_crps`."""
+        version) and, with `do_ssms`, of the ssms channel from the Gram
+        CSMs through `binarize_fn` (the matrix binarizer's wrapper or its
+        plain version); the same structure as `_pair_crps`."""
         bi, bj = row["length"].shape[0], col["length"].shape[0]
         L = row["chroma"].shape[1]
         l1 = row["length"].repeat_interleave(bj)
@@ -146,28 +181,35 @@ class Serra09(CoverAlgorithm):
         Bm, _, _ = crps(row["mfcc"][:, None].expand(
             (bi, bj) + row["mfcc"].shape[1:]), col["mfcc"][None],
             centered=True)
-        return (Bc, Bm), l1e.reshape(bi, bj), l2e.reshape(bi, bj)
+        Bs = (Bc, Bm)
+        if self.do_ssms:
+            # the 20,736-dim ssms do not fit the fused kernel's shared
+            # memory: their CSMs come from one Gram matmul (centred by
+            # tile_scores), binarized in one matrix-input call
+            D = crp.get_csm_tile(row["ssms"], col["ssms"])
+            Bs += (binarize_fn(D.reshape(bi * bj, L, L).contiguous(), l1e,
+                               l2e, self.kappa).reshape(bi, bj, L, L),)
+        return Bs, l1e.reshape(bi, bj), l2e.reshape(bi, bj)
 
-    def tile_scores(self, row: dict, col: dict, plain: bool = False) -> dict:
-        """Scores of every (row song, column song) pair of the tile.
+    def _center_ssms(self, row: dict, col: dict):
+        """Subtract a TILE-SHARED origin (the first row song's first block)
+        from both sides' ssms, once per tile. Pairwise distances are
+        translation invariant, so this is exact in infinite precision,
+        and it removes the fp32 x^2 + y^2 - 2xy Gram cancellation of the
+        large-norm scattering vectors (see `crp.get_csm_centered`); being
+        shared by the tile, the centred operands stay per song, not per
+        pair."""
+        c0 = row["ssms"][0, 0]
+        row = dict(row, ssms=row["ssms"] - c0)
+        col = dict(col, ssms=col["ssms"] - c0)
+        return row, col
 
-        On a CUDA tile with 0 < kappa < 1 the CRPs come from the fused
-        kernel and the aligners run their kernels; otherwise the plain
-        per-pair CRP ops feed the `*_best` aligners. `plain=True` takes the
-        kernel path's composition with every kernel replaced by its plain
-        PyTorch version, on the tensors' device: the reference the kernel
-        path is checked against.
-        """
-        fused = 0.0 < self.kappa < 1.0 and (plain or row["chroma"].is_cuda)
-        if fused:
-            Bs, l1e, l2e = self._tile_crps_fused(
-                row, col,
-                fused_binary_crp_ref if plain else fused_binary_crp_batch)
-        else:
-            Bs, l1e, l2e = self._pair_crps(row, col)
-        nf = len(Bs)
-        bi, bj, L, _ = Bs[0].shape
-        S = torch.cat([B.reshape(-1, L, L) for B in Bs])
+    def _scores(self, S, l1e, l2e, plain: bool) -> torch.Tensor:
+        """qmax and dmax of the channels' CRPs stacked channel-major
+        (nf * bi * bj, L, L), in ONE call each, normalized by M + N:
+        (2, nf, bi, bj)."""
+        bi, bj = l1e.shape
+        nf = S.shape[0] // (bi * bj)
         ml = l1e.reshape(-1).repeat(nf)
         nl = l2e.reshape(-1).repeat(nf)
         if plain:
@@ -177,7 +219,38 @@ class Serra09(CoverAlgorithm):
             q = alignment.qmax_batch_best(S, ml, nl)
             d = alignment.dmax_batch_best(S, ml, nl)
         denom = torch.clamp_min(ml + nl, 1).to(torch.float32)
-        q = (q / denom).reshape(nf, bi, bj)
-        d = (d / denom).reshape(nf, bi, bj)
-        return {"chroma_qmax": q[0], "chroma_dmax": d[0],
-                "mfcc_qmax": q[1], "mfcc_dmax": d[1]}
+        return torch.stack([q / denom, d / denom]).reshape(2, nf, bi, bj)
+
+    def _channels(self) -> list:
+        return ["chroma", "mfcc"] + (["ssms_scatter"] if self.do_ssms
+                                     else [])
+
+    def tile_scores(self, row: dict, col: dict, plain: bool = False) -> dict:
+        """Scores of every (row song, column song) pair of the tile.
+
+        On a CUDA tile with 0 < kappa < 1 the CRPs come from the fused
+        kernel (and the matrix binarizer for ssms) and the aligners run
+        their kernels; otherwise the plain per-pair CRP ops feed the
+        `*_best` aligners. `plain=True` takes the kernel path's
+        composition with every kernel replaced by its plain PyTorch
+        version, on the tensors' device: the reference the kernel path is
+        checked against.
+        """
+        if self.do_ssms:
+            row, col = self._center_ssms(row, col)
+        fused = 0.0 < self.kappa < 1.0 and (plain or row["chroma"].is_cuda)
+        if fused:
+            Bs, l1e, l2e = self._tile_crps_fused(
+                row, col,
+                fused_binary_crp_ref if plain else fused_binary_crp_batch,
+                binarize_matrix_ref if plain else binarize_matrix_batch)
+        else:
+            Bs, l1e, l2e = self._pair_crps(row, col)
+        L = Bs[0].shape[-1]
+        qd = self._scores(torch.cat([B.reshape(-1, L, L) for B in Bs]),
+                          l1e, l2e, plain)
+        out = {}
+        for k, name in enumerate(self._channels()):
+            out[f"{name}_qmax"] = qd[0, k]
+            out[f"{name}_dmax"] = qd[1, k]
+        return out

@@ -166,21 +166,29 @@ def run_pairwise(
 
     The padded descriptor corpus (numpy arrays or tensors) is uploaded to
     `device` ONCE; every tile is a slice of it, so no descriptor bytes
-    cross the host link during the sweep. Tile results stay on the device
-    until a batched flush. With `checkpoint_path`, the ledger of completed
-    tiles plus the partial score matrices is saved every
-    `checkpoint_every` tiles and the sweep resumes from it.
+    cross the host link during the sweep. When n_songs is not a multiple
+    of the tile, only the last block of songs is copied and zero-padded
+    to a full tile (the corpus itself is never copied: the ssms corpus of
+    EarlySNF is gigabytes). Tile results stay on the device until a
+    batched flush. With `checkpoint_path`, the ledger of completed tiles
+    plus the partial score matrices is saved every `checkpoint_every`
+    tiles and the sweep resumes from it.
     """
     tile = tile or algorithm.TILE
     n_tiles = -(-n_songs // tile)
     sweep = _TileSweeper(algorithm.SIMILARITY_TYPES, n_songs, tile,
                          algorithm.SYMMETRIC, checkpoint_path,
                          checkpoint_every)
-    dd = {}
-    for k, v in descriptors_from_numpy(desc, device).items():
-        pad = n_tiles * tile - v.shape[0]
-        dd[k] = torch.cat([v, v.new_zeros((pad,) + v.shape[1:])]) \
-            if pad else v
+    dd = descriptors_from_numpy(desc, device)
+    first = (n_tiles - 1) * tile          # of the last block of songs
+    last = {k: torch.cat([v[first:], v.new_zeros(
+        (n_tiles * tile - v.shape[0],) + v.shape[1:])]) for k, v in dd.items()}
+
+    def block(i: int) -> dict:
+        """Songs [i * tile, (i + 1) * tile) of every descriptor."""
+        if i == n_tiles - 1:
+            return last
+        return {k: v[i * tile:(i + 1) * tile] for k, v in dd.items()}
 
     t0 = time.time()
     for ti in range(n_tiles):
@@ -192,10 +200,9 @@ def run_pairwise(
         cols = [tj for tj in cols if not sweep.done[ti, tj]]
         if not cols:
             continue
-        row = {k: v[ti * tile:(ti + 1) * tile] for k, v in dd.items()}
+        row = block(ti)
         for tj in cols:
-            col = {k: v[tj * tile:(tj + 1) * tile] for k, v in dd.items()}
-            sweep.submit(ti, tj, algorithm.tile_scores(row, col))
+            sweep.submit(ti, tj, algorithm.tile_scores(row, block(tj)))
         if verbose:
             sweep.flush()
             print(f"[{algorithm.NAME}] block-row {ti + 1}/{n_tiles} "

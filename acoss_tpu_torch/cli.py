@@ -1,9 +1,10 @@
 """Command-line entry point of the port.
 
-`python -m acoss_tpu_torch benchmark -a Serra09 -d <features.npz>
- -s NAME [-c hpcp] [-t TILE] [--cachedir DIR] [--no-checkpoint]
- [--device cuda]` extracts descriptors, sweeps the pair grid on the
-device, prints MR/MRR/MDR/MAP per similarity type and appends them to
+`python -m acoss_tpu_torch benchmark -a {Serra09,EarlySNF} -d
+ <features.npz> -s NAME [-c hpcp] [-t TILE] [--cachedir DIR]
+ [--no-checkpoint] [--snf-precision {highest,default}] [--device cuda]`
+extracts descriptors, sweeps the pair grid on the device, prints
+MR/MRR/MDR/MAP per similarity type and appends them to
 `results_<NAME>.csv` (the reference's CSV schema). The sweep checkpoints
 to `<cachedir>/<algorithm>_<NAME>_ckpt.npz` and resumes from it.
 """
@@ -11,7 +12,9 @@ to `<cachedir>/<algorithm>_<NAME>_ckpt.npz` and resumes from it.
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
+import sys
 
 
 def cmd_benchmark(args) -> int:
@@ -19,7 +22,15 @@ def cmd_benchmark(args) -> int:
     from acoss_tpu_torch.benchmarking.harness import benchmark
     from acoss_tpu_torch.data.store import FeatureSet
 
-    algo = ALL_ALGORITHMS[args.algorithm](chroma_type=args.chroma_type)
+    cls = ALL_ALGORITHMS[args.algorithm]
+    kwargs = {"chroma_type": args.chroma_type}
+    if args.snf_precision != "highest":
+        if "snf_precision" not in inspect.signature(cls).parameters:
+            print(f"--snf-precision is not supported by {args.algorithm}",
+                  file=sys.stderr)
+            return 1
+        kwargs["snf_precision"] = args.snf_precision
+    algo = cls(**kwargs)
     fs = FeatureSet.load(args.datapath)
     os.makedirs(args.cachedir, exist_ok=True)
     csv = f"results_{args.shortname}.csv"
@@ -51,6 +62,12 @@ def main(argv=None) -> int:
     b.add_argument("-t", "--tile", type=int, default=None)
     b.add_argument("--cachedir", default="cache")
     b.add_argument("--no-checkpoint", action="store_true")
+    b.add_argument("--snf-precision", default="highest",
+                   choices=("highest", "default"),
+                   help="SNF diffusion matmuls: 'highest' (parity, full "
+                        "fp32) or 'default' (throughput: bf16-rounded "
+                        "operands and the fused WCSMSSM kernel; not for "
+                        "parity runs)")
     b.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs "
                         "the plain PyTorch versions of the kernels)")

@@ -95,6 +95,16 @@ def library() -> ctypes.CDLL:
     lib.acoss_fused_crp.restype = _I
     lib.acoss_fused_crp_smem.argtypes = [_I, _I, _I]
     lib.acoss_fused_crp_smem.restype = ctypes.c_size_t
+    # D, l1, l2, B, L, kappa, thr, S, device, stream
+    lib.acoss_binarize.argtypes = [_P, _P, _P, _I, _I, _F, _P, _P, _I, _P]
+    lib.acoss_binarize.restype = _I
+    # W, k, B, n, largest, V, device, stream
+    lib.acoss_knn_mask.argtypes = [_P, _P, _I, _I, _I, _P, _I, _P]
+    lib.acoss_knn_mask.restype = _I
+    # SSMA, SSMB, CSM, l1, l2, K, B, L, Mu, stats, W, device, stream
+    lib.acoss_wcsmssm.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P,
+                                  _P, _I, _P]
+    lib.acoss_wcsmssm.restype = _I
     lib.acoss_error_string.argtypes = [_I]
     lib.acoss_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,5 +1,5 @@
-"""Cross-recurrence-plot math in PyTorch (the Serra09 subset of
-`acoss_tpu.ops.crp`).
+"""Cross-recurrence-plot math in PyTorch (the Serra09 and EarlySNF subset
+of `acoss_tpu.ops.crp`).
 
 Every function takes optional leading batch dimensions, so one call covers
 a whole tile of song pairs (the JAX package vmaps per-pair functions
@@ -16,12 +16,44 @@ from __future__ import annotations
 import torch
 
 
+def get_ssm(X: torch.Tensor) -> torch.Tensor:
+    """Euclidean self-similarity matrix of the rows of X (..., N, d), with
+    an exactly zero diagonal.
+
+    The squared norms come from the diagonal of the one Gram matmul, not
+    from a separate row reduction: within one matmul, bitwise-equal rows
+    i, j reduce in the same order, so G[i,i] == G[j,j] == G[i,j] and their
+    distance is exactly 0 (the repeat-padded ssms rows make duplicate rows
+    routine; a few ulps of dust there flip kNN and affinity decisions)."""
+    G = torch.matmul(X, X.transpose(-1, -2))
+    sq = torch.diagonal(G, dim1=-2, dim2=-1)
+    D2 = torch.clamp_min(sq[..., :, None] + sq[..., None, :] - 2.0 * G, 0.0)
+    n = X.shape[-2]
+    D2 = D2 * (1.0 - torch.eye(n, dtype=D2.dtype, device=D2.device))
+    return torch.sqrt(D2)
+
+
 def get_csm(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """Euclidean cross-similarity matrix between rows of X (..., M, d) and
     Y (..., N, d): sqrt(max(|x|^2 + |y|^2 - 2 x.y, 0))."""
     C = (torch.sum(X * X, dim=-1)[..., :, None]
          + torch.sum(Y * Y, dim=-1)[..., None, :]
          - 2.0 * torch.matmul(X, Y.transpose(-1, -2)))
+    return torch.sqrt(torch.clamp_min(C, 0.0))
+
+
+def get_csm_tile(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """`get_csm` of every (row song, column song) pair of a tile: X (bi, L,
+    d), Y (bj, L, d) -> (bi, bj, L, L). The cross products are ONE
+    (bi L, d) x (d, bj L) matmul, so wide descriptors (the 20,736-dim
+    ssms) are never copied per pair."""
+    bi, L, d = X.shape
+    bj = Y.shape[0]
+    G = torch.matmul(X.reshape(bi * L, d), Y.reshape(bj * L, d).T)
+    G = G.reshape(bi, L, bj, L).permute(0, 2, 1, 3)
+    C = (torch.sum(X * X, dim=-1)[:, None, :, None]
+         + torch.sum(Y * Y, dim=-1)[None, :, None, :]
+         - 2.0 * G)
     return torch.sqrt(torch.clamp_min(C, 0.0))
 
 

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from acoss_tpu_torch.benchmarking.algorithms import Serra09
+from acoss_tpu_torch.benchmarking.algorithms import EarlySNF, Serra09
 from acoss_tpu_torch.convert import descriptors_from_numpy
 from acoss_tpu_torch.data import make_synthetic_dataset
 from acoss_tpu_torch.ops import alignment, alignment_cuda, crp_cuda
@@ -76,6 +76,96 @@ def test_serra09_tile_kernel_path_equals_plain(dev):
     d = descriptors_from_numpy(algo.extract_descriptors(fs, device=dev),
                                dev)
     got = algo.tile_scores(d, d)
+    want = algo.tile_scores(d, d, plain=True)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_binarize_kernel_bit_equal_to_plain(dev):
+    """Negative values, -0.0 next to +0.0 and ties (the negated SNF cross
+    block), pairs whose rounded k is 0, a zero and a negative length."""
+    rng = np.random.default_rng(20)
+    B, L = 10, 512
+    D = rng.standard_normal((B, L, L)).astype(np.float32)
+    fused = rng.random((3, L, L)).astype(np.float32)
+    fused[rng.random(fused.shape) < 0.3] = 0.0
+    D[:3] = -fused
+    D[1, :, ::5] = np.abs(D[1, :, ::5])
+    D[2] = np.round(D[2] * 4) / 4
+    l1 = rng.integers(300, L + 1, B).astype(np.int32)
+    l2 = rng.integers(300, L + 1, B).astype(np.int32)
+    l1[3:6], l2[6:8] = [5, 0, -3], [4, 0]
+    D, l1, l2 = (torch.from_numpy(a).to(dev) for a in (D, l1, l2))
+    before = crp_cuda.binarize_matrix_batch.launches
+    got = crp_cuda.binarize_matrix_batch(D, l1, l2, 0.095)
+    torch.cuda.synchronize()
+    assert crp_cuda.binarize_matrix_batch.launches == before + 1
+    want = crp_cuda.binarize_matrix_ref(D, l1, l2, 0.095)
+    assert torch.equal(got, want)
+    assert int(got[3:8].sum()) == 0 and int(got[:3].sum()) > 0
+
+
+@pytest.mark.parametrize("largest", [True, False])
+def test_knn_mask_kernel_bit_equal_to_plain(dev, largest):
+    rng = np.random.default_rng(21)
+    B, n = 6, 1024
+    W = rng.random((B, n, n)).astype(np.float32)
+    W[rng.random(W.shape) < 0.2] = 0.25          # ties at the threshold
+    W[2, :100] = 0.0
+    k = np.array([1, n, 99, 0, n + 5, 17], np.int32)
+    W, k = torch.from_numpy(W).to(dev), torch.from_numpy(k).to(dev)
+    got = crp_cuda.knn_mask_matrix_batch(W, k, largest)
+    want = crp_cuda.knn_mask_matrix_ref(W, k, largest)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+def test_wcsmssm_kernel_value_equal_to_plain(dev):
+    rng = np.random.default_rng(22)
+    B, L = 4, 512
+    A, Bm, C = rng.random((3, B, L, L)).astype(np.float32)
+    l1 = np.array([512, 400, 12, 300], np.int32)
+    l2 = np.array([512, 450, 15, 2], np.int32)
+    K = (np.float32(0.095) * (l1 + l2).astype(np.float32)).astype(np.int32)
+    K[0] = 1                                     # a tiny K
+    args = [torch.from_numpy(a).to(dev) for a in (A, Bm, C, l1, l2, K)]
+    got = crp_cuda.wcsmssm_batch(*args)
+    want = crp_cuda.wcsmssm_ref(*args)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_early_snf_tile_kernel_path(dev, precision):
+    """Parity mode: the kernel path equals its plain composition exactly
+    (binarizer and mask are exact, the float work is shared). Throughput
+    mode: the fused WCSMSSM kernel runs, once per channel."""
+    fs = make_synthetic_dataset(n_cliques=2, clique_size=2, seed=0,
+                                base_duration=300.0, beat_period=30.0)
+    algo = EarlySNF(snf_precision=precision)
+    d = descriptors_from_numpy(algo.extract_descriptors(fs, device=dev),
+                               dev)
+    before = crp_cuda.wcsmssm_batch.launches
+    got = algo.tile_scores(d, d)
+    torch.cuda.synchronize()
+    fast = precision == "default"
+    assert crp_cuda.wcsmssm_batch.launches == before + 2 * fast
+    want = algo.tile_scores(d, d, plain=True)
+    assert sorted(got) == sorted(algo.SIMILARITY_TYPES)
+    for k in want:
+        assert torch.isfinite(got[k]).all(), k
+        if not fast:
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_serra09_ssms_tile_kernel_path_equals_plain(dev):
+    fs = make_synthetic_dataset(n_cliques=2, clique_size=2, seed=1,
+                                base_duration=300.0, beat_period=30.0)
+    algo = Serra09(do_ssms=True)
+    d = descriptors_from_numpy(algo.extract_descriptors(fs, device=dev),
+                               dev)
+    before = crp_cuda.binarize_matrix_batch.launches
+    got = algo.tile_scores(d, d)
+    assert crp_cuda.binarize_matrix_batch.launches == before + 1
     want = algo.tile_scores(d, d, plain=True)
     for k in want:
         assert torch.equal(got[k], want[k]), k

@@ -31,8 +31,11 @@ def test_port_imports_no_jax():
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     for m in ("acoss_tpu_torch.cli", "acoss_tpu_torch.ops.alignment_cuda",
-              "acoss_tpu_torch.ops.crp_cuda",
-              "acoss_tpu_torch.benchmarking.algorithms.serra09"):
+              "acoss_tpu_torch.ops.crp_cuda", "acoss_tpu_torch.ops.fusion",
+              "acoss_tpu_torch.ops.resize", "acoss_tpu_torch.ops.scattering",
+              "acoss_tpu_torch.ops.ssm_features",
+              "acoss_tpu_torch.benchmarking.algorithms.serra09",
+              "acoss_tpu_torch.benchmarking.algorithms.early_snf"):
         assert m in out["modules"]
 
 
@@ -49,4 +52,19 @@ def test_library_name_tracks_the_sources(tmp_path):
     assert p.parent == tmp_path and p.name.startswith("libacoss_kernels_")
     assert p == _build.library_path(tmp_path)
     names = {s.name for s in _build.sources()}
-    assert {"alignment.cu", "crp.cu"} <= names
+    assert {"alignment.cu", "crp.cu", "knn.cu", "select.cuh"} <= names
+
+
+def test_library_declares_every_c_entry_point():
+    """Each C function the wrappers call is declared in `library()` with
+    pointer-width arguments (ctypes would otherwise pass a 32-bit int and
+    cut the pointer), checked against the sources without building."""
+    import re
+
+    src = "\n".join(p.read_text() for p in _build.sources())
+    exported = set(re.findall(r"^(?:int|size_t) (acoss_\w+)\(", src, re.M))
+    assert {"acoss_qmax", "acoss_dmax", "acoss_fused_crp", "acoss_binarize",
+            "acoss_knn_mask", "acoss_wcsmssm"} <= exported
+    body = (REPO / "acoss_tpu_torch/ops/_build.py").read_text()
+    for name in exported - {"acoss_qmax", "acoss_dmax"}:
+        assert f"lib.{name}.argtypes" in body, name

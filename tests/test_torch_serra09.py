@@ -151,9 +151,36 @@ def test_checkpoint_ledger_resumes_across_packages(corpus, tmp_path):
                         want)
 
 
-def test_ssms_channel_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Serra09(do_ssms=True)
+def test_ssms_channel_matches_jax():
+    """Serra09(do_ssms=True) on one set of descriptors (the port's own,
+    ssms corpus included; its extraction is held against JAX in
+    test_torch_early_snf.py): the per-pair path's sweep and the kernel
+    path's composition (the fused CRP and the matrix binarizer as plain
+    versions, on ssms centred at a tile-shared origin) give the JAX
+    package's scores and retrieval metrics."""
+    fs = make_synthetic_dataset(n_cliques=4, clique_size=2, n_states=6,
+                                base_duration=30.0, seed=2)
+    kw = dict(do_ssms=True, downsample_fac=4, pad_to_multiple=16)
+    algo = Serra09(**kw)
+    d = algo.extract_descriptors(fs, device="cpu")
+    assert isinstance(d["ssms"], torch.Tensor)
+    desc = {k: v.numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in d.items()}
+    want = jax_run_pairwise(JaxSerra09(**kw), desc, fs.n_songs)
+    types = SIM_TYPES + ("ssms_scatter_qmax", "ssms_scatter_dmax")
+    assert sorted(want) == sorted(algo.SIMILARITY_TYPES) == sorted(types)
+    got = run_pairwise(algo, d, fs.n_songs, device="cpu")
+    for k in types:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6,
+                                   err_msg=k)
+    assert _stats(got, fs.labels) == _stats(want, fs.labels)
+    assert want["ssms_scatter_qmax"].max() > 0
+    t = {k: torch.as_tensor(v) for k, v in d.items()}
+    tile = algo.tile_scores({k: v[4:8] for k, v in t.items()},
+                            {k: v[0:4] for k, v in t.items()}, plain=True)
+    for k in types:
+        np.testing.assert_allclose(tile[k].numpy(), want[k][4:8, 0:4],
+                                   rtol=0, atol=1e-6, err_msg=k)
 
 
 def test_cli_benchmark_on_cpu(corpus, tmp_path, monkeypatch, capsys):
