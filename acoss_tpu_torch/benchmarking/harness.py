@@ -51,9 +51,11 @@ class CoverAlgorithm:
     def tile_scores(self, row_desc: dict, col_desc: dict) -> dict:
         raise NotImplementedError
 
-    def post_process(self, Ds: dict, desc: dict) -> dict:
-        """Optional hook applied to the full score matrices after the
-        sweep."""
+    def post_process(self, Ds: dict, desc: dict,
+                     device: str | torch.device = "cuda") -> dict:
+        """Optional hook applied to the full (host numpy) score matrices
+        after the sweep; `device` is the benchmark's device, on which it
+        runs its tensor work."""
         return Ds
 
 
@@ -244,7 +246,7 @@ def benchmark(
                       device=device)
     sync()
     t2 = time.perf_counter()
-    Ds = algorithm.post_process(Ds, desc)
+    Ds = algorithm.post_process(Ds, desc, device=device)
     out = {}
     for k, D in Ds.items():
         S = -D if k in algorithm.DISTANCE_TYPES else D

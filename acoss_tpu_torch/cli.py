@@ -1,6 +1,6 @@
 """Command-line entry point of the port.
 
-`python -m acoss_tpu_torch benchmark -a {Serra09,EarlySNF} -d
+`python -m acoss_tpu_torch benchmark -a {Serra09,EarlySNF,EarlyFusion} -d
  <features.npz> -s NAME [-c hpcp] [-t TILE] [--cachedir DIR]
  [--no-checkpoint] [--snf-precision {highest,default}] [--device cuda]`
 extracts descriptors, sweeps the pair grid on the device, prints

@@ -55,6 +55,25 @@ def library_path(build_dir: Path = BUILD_DIR) -> Path:
     return Path(build_dir) / f"libacoss_kernels_{h.hexdigest()[:16]}.so"
 
 
+def compile_once(out: Path, command) -> Path:
+    """Build `out` unless it exists, with the compiler command
+    `command(tmp)`, which writes the temporary file `tmp` that is then
+    renamed into place; returns `out`. Raises RuntimeError with the
+    compiler's stderr on failure."""
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    cmd = command(tmp)
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{cmd[0]} failed ({r.returncode}): {' '.join(cmd)}\n{r.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile the kernels unless a library for these sources exists;
     returns its path. Raises RuntimeError with nvcc's stderr on failure."""
@@ -62,51 +81,44 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     if out.exists():
         return out
     nvcc = find_nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stderr}")
-    os.replace(tmp, out)
-    return out
+    return compile_once(out, lambda tmp: [
+        nvcc, *NVCC_FLAGS, "-o", str(tmp),
+        *[str(p) for p in sources() if p.suffix == ".cu"]])
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# S, m_len, n_len, B, M, N, <the float parameters>, out, device, stream
+_ALIGNER = ([_P, _P, _P, _I, _I, _I], [_P, _I, _P])
+
+#: (argtypes, restype) of every C entry point of the kernel library.
+SIGNATURES = {
+    **{name: (_ALIGNER[0] + [_F] * n_params + _ALIGNER[1], _I)
+       for name, n_params in (("acoss_qmax", 1), ("acoss_dmax", 1),
+                              ("acoss_qmax_uneq", 2), ("acoss_sw", 4))},
+    # X, Y, l1, l2, B, L, d, m, kappa, W, thr, S, device, stream
+    "acoss_fused_crp": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
+                         _I, _P], _I),
+    "acoss_fused_crp_smem": ([_I, _I, _I], ctypes.c_size_t),
+    # D, l1, l2, B, L, kappa, thr, S, device, stream
+    "acoss_binarize": ([_P, _P, _P, _I, _I, _F, _P, _P, _I, _P], _I),
+    # W, k, B, n, largest, V, device, stream
+    "acoss_knn_mask": ([_P, _P, _I, _I, _I, _P, _I, _P], _I),
+    # SSMA, SSMB, CSM, l1, l2, K, B, L, Mu, stats, W, device, stream
+    "acoss_wcsmssm": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
+                      _I),
+    "acoss_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = ctypes.CDLL(str(build()))
-    for name in ("acoss_qmax", "acoss_dmax"):
+    for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
-        # S, m_len, n_len, B, M, N, gap, out, device, stream
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P, _I, _P]
-        fn.restype = _I
-    # X, Y, l1, l2, B, L, d, m, kappa, W, thr, S, device, stream
-    lib.acoss_fused_crp.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                    _P, _P, _P, _I, _P]
-    lib.acoss_fused_crp.restype = _I
-    lib.acoss_fused_crp_smem.argtypes = [_I, _I, _I]
-    lib.acoss_fused_crp_smem.restype = ctypes.c_size_t
-    # D, l1, l2, B, L, kappa, thr, S, device, stream
-    lib.acoss_binarize.argtypes = [_P, _P, _P, _I, _I, _F, _P, _P, _I, _P]
-    lib.acoss_binarize.restype = _I
-    # W, k, B, n, largest, V, device, stream
-    lib.acoss_knn_mask.argtypes = [_P, _P, _I, _I, _I, _P, _I, _P]
-    lib.acoss_knn_mask.restype = _I
-    # SSMA, SSMB, CSM, l1, l2, K, B, L, Mu, stats, W, device, stream
-    lib.acoss_wcsmssm.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P,
-                                  _P, _I, _P]
-    lib.acoss_wcsmssm.restype = _I
-    lib.acoss_error_string.argtypes = [_I]
-    lib.acoss_error_string.restype = ctypes.c_char_p
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 

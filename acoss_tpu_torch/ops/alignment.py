@@ -1,7 +1,8 @@
 """Batched row-streaming local aligners (qmax / dmax / constrained SW) in
-PyTorch: the plain versions of `acoss_tpu.ops.alignment`, plus the
-`*_best` dispatchers that send CUDA batches to the hand-written kernels
-of `alignment_cuda`.
+PyTorch: the plain versions of `acoss_tpu.ops.alignment`, the `*_best`
+dispatchers that send CUDA batches to the hand-written kernels of
+`alignment_cuda`, and the single-pair `qmax` / `dmax` / `swconstrained`
+through those dispatchers.
 
 The recurrences have NO intra-row dependency: every predecessor of cell
 (i, j) lives in rows i-1, i-2 (and i-3 for dmax), so a whole row is one
@@ -177,29 +178,28 @@ def swconstrained_batch(S, m_len, n_len, gap_opening: float = -0.5,
 
 def qmax_batch_best(S, m_len, n_len, gap_onset: float = 0.5,
                     gap_extension: float = 0.5) -> torch.Tensor:
-    """qmax on the CUDA kernel for a CUDA batch with equal gaps >= 0, else
-    the plain scan. gap >= 0 is the JAX package's guard (its mask-free TPU
-    kernel needs padded cells to decay); out of range takes the plain
-    scan on every device so that both packages agree."""
-    if S.is_cuda and gap_onset >= 0.0 and gap_extension >= 0.0:
-        if gap_onset != gap_extension:
-            raise NotImplementedError(
-                "unequal-gap qmax on CUDA needs the port of "
-                "alignment_pallas._qmax_kernel_uneq (ROADMAP Queue B, "
-                "kernel 8)")
+    """qmax on a CUDA kernel for a CUDA batch (the equal-gap kernel, or the
+    unequal-gap one), else the plain scan. The kernels mask by length and
+    do the plain scan's fp32 operations in its order, so they give its
+    scores for any gaps: the JAX package's gap >= 0 guard (its mask-free
+    TPU kernels need padded cells to decay) does not apply here."""
+    if S.is_cuda:
         from acoss_tpu_torch.ops import alignment_cuda
-        return alignment_cuda.qmax_batch_cuda(
-            S, *_lengths_i32(S, m_len, n_len), gap=gap_onset)
+        ml, nl = _lengths_i32(S, m_len, n_len)
+        if gap_onset == gap_extension:
+            return alignment_cuda.qmax_batch_cuda(S, ml, nl, gap=gap_onset)
+        return alignment_cuda.qmax_uneq_batch_cuda(S, ml, nl, gap_onset,
+                                                   gap_extension)
     return qmax_batch(S, m_len, n_len, gap_onset=gap_onset,
                       gap_extension=gap_extension)
 
 
 def dmax_batch_best(S, m_len, n_len, gap_onset: float = 0.5,
                     gap_extension: float = 0.5) -> torch.Tensor:
-    """dmax on the CUDA kernel for a CUDA batch with equal gaps in
-    [0, 1] (the JAX package's guard), else the plain scan."""
-    if (S.is_cuda and gap_onset == gap_extension
-            and 0.0 <= gap_onset <= 1.0):
+    """dmax on the CUDA kernel for a CUDA batch with equal gaps (any value,
+    as for qmax), else the plain scan: unequal gaps have no kernel in
+    either package."""
+    if S.is_cuda and gap_onset == gap_extension:
         from acoss_tpu_torch.ops import alignment_cuda
         return alignment_cuda.dmax_batch_cuda(
             S, *_lengths_i32(S, m_len, n_len), gap=gap_onset)
@@ -211,16 +211,38 @@ def swconstrained_batch_best(S, m_len, n_len, gap_opening: float = -0.5,
                              gap_extension: float = -0.7,
                              match_score: float = 1.0,
                              mismatch_score: float = -1.0) -> torch.Tensor:
-    """Constrained SW: the plain scan on the CPU. Its CUDA kernel is not
-    ported yet, so a CUDA batch inside the JAX guard (non-positive
-    mismatch and gaps) raises."""
-    in_range = not (mismatch_score > 0 or gap_opening > 0
-                    or gap_extension > 0)
-    if S.is_cuda and in_range:
-        raise NotImplementedError(
-            "swconstrained on CUDA needs the port of "
-            "alignment_pallas._sw_kernel (ROADMAP Queue B, kernel 7)")
+    """Constrained SW on the CUDA kernel for a CUDA batch, else the plain
+    scan. The kernel gives the plain scan's scores for any scores and gaps
+    (the JAX package's non-positive guard does not apply, as for qmax)."""
+    if S.is_cuda:
+        from acoss_tpu_torch.ops import alignment_cuda
+        return alignment_cuda.swconstrained_batch_cuda(
+            S, *_lengths_i32(S, m_len, n_len), gap_opening=gap_opening,
+            gap_extension=gap_extension, match_score=match_score,
+            mismatch_score=mismatch_score)
     return swconstrained_batch(
         S, m_len, n_len, gap_opening=gap_opening,
         gap_extension=gap_extension, match_score=match_score,
         mismatch_score=mismatch_score)
+
+
+def _single(batch_best):
+    def fn(S, m_len=None, n_len=None, **kw) -> torch.Tensor:
+        S = torch.as_tensor(S)
+        M, N = S.shape
+        m = M if m_len is None else m_len
+        n = N if n_len is None else n_len
+        return batch_best(S[None], torch.tensor([m]), torch.tensor([n]),
+                          **kw)[0]
+
+    return fn
+
+
+qmax = _single(qmax_batch_best)
+qmax.__doc__ = ("Single-pair qmax of an (M, N) CRP, through "
+                "`qmax_batch_best`: a 0-d tensor on S's device.")
+dmax = _single(dmax_batch_best)
+dmax.__doc__ = "Single-pair dmax, through `dmax_batch_best`."
+swconstrained = _single(swconstrained_batch_best)
+swconstrained.__doc__ = ("Single-pair constrained SW, through "
+                         "`swconstrained_batch_best`.")

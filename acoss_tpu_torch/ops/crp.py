@@ -1,5 +1,5 @@
-"""Cross-recurrence-plot math in PyTorch (the Serra09 and EarlySNF subset
-of `acoss_tpu.ops.crp`).
+"""Cross-recurrence-plot math in PyTorch (the Serra09, EarlySNF and
+EarlyFusion subset of `acoss_tpu.ops.crp`).
 
 Every function takes optional leading batch dimensions, so one call covers
 a whole tile of song pairs (the JAX package vmaps per-pair functions
@@ -66,6 +66,18 @@ def get_csm_centered(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return get_csm(X - c, Y - c)
 
 
+def get_csm_cosine(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Cosine-distance cross-similarity matrix between rows of X (..., M,
+    d) and Y (..., N, d): 1 - cos, with a zero-norm row treated as norm
+    1."""
+    xn = torch.sqrt(torch.sum(X * X, dim=-1))
+    yn = torch.sqrt(torch.sum(Y * Y, dim=-1))
+    xn = torch.where(xn == 0, 1.0, xn)
+    yn = torch.where(yn == 0, 1.0, yn)
+    return 1.0 - torch.matmul(X / xn[..., None],
+                              (Y / yn[..., None]).transpose(-1, -2))
+
+
 def get_all_shift_scores(C1: torch.Tensor, C2: torch.Tensor) -> torch.Tensor:
     """scores[..., s] = sum_b roll(C1, s)[b] * C2[b] over all circular
     shifts s, as one matmul against the circulant of C1."""
@@ -92,6 +104,22 @@ def transpose_chroma(X: torch.Tensor, oti: torch.Tensor,
         % n_chroma                                 # (..., n_chroma)
     idx = idx[..., None, :].expand(X.shape)
     return torch.gather(X, -1, idx)
+
+
+def get_csm_blocked_oti(X: torch.Tensor, Y: torch.Tensor, C1: torch.Tensor,
+                        C2: torch.Tensor, csm_fn=get_csm_cosine,
+                        n_chroma: int = 12) -> torch.Tensor:
+    """CSM between stacked chroma blocks after a global OTI applied to X:
+    X (..., M, D) holds D // n_chroma chroma vectors a row, each rolled by
+    the OTI of the global chroma vectors C1 (..., n_chroma) against C2;
+    then `csm_fn(X rolled, Y)`. The batch shape is that of the OTI (the
+    broadcast of C1's and C2's), and X is expanded to it."""
+    oti = get_oti(C1, C2)
+    M, D = X.shape[-2:]
+    X = X.expand(oti.shape + (M, D))
+    X1 = transpose_chroma(X.reshape(oti.shape + (M * (D // n_chroma),
+                                                 n_chroma)), oti, n_chroma)
+    return csm_fn(X1.reshape(oti.shape + (M, D)), Y)
 
 
 def sliding_csm_padded(D: torch.Tensor, win: int) -> torch.Tensor:

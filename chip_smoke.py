@@ -5,28 +5,37 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 `acoss_tpu_torch/csrc`, checks each kernel against its plain PyTorch
 version on the card at the main paths' shapes (bit for bit, and the fused
-WCSMSSM build within rtol 2e-5 / atol 2e-6), then drives the paths over a
-covers80-geometry synthetic corpus (160 songs, 210 tiles, 12,720 pairs):
+WCSMSSM build within rtol 2e-5 / atol 2e-6), checks the four aligner
+kernels bit for bit against the port's native C++ aligners (`native.py`),
+then drives the paths over a covers80-geometry synthetic corpus (160
+songs, 210 tiles, 12,720 pairs):
 
 - `benchmark(Serra09())`, the Serra09 main path (fused CRP, qmax, dmax);
+- `serra_cover_similarity_measures(dis_onset=0.3, dis_extension=0.8)`
+  of the legacy similarity API on percentile CRPs of song pairs (the
+  unequal-gap qmax kernel);
 - `benchmark(EarlySNF())`, the SNF slice in parity mode (matrix
   binarizer, kNN row mask, qmax, dmax);
 - `run_pairwise(EarlySNF(snf_precision="default"))`, the throughput mode
   (adds the fused WCSMSSM kernel), on the descriptors EarlySNF extracted;
 - `run_pairwise(Serra09(do_ssms=True))`, Serra09 with its ssms channel
-  (fused CRP, binarizer, qmax, dmax), on the same descriptors.
+  (fused CRP, binarizer, qmax, dmax), on the same descriptors;
+- `benchmark(EarlyFusion())`, constrained Smith-Waterman and late fusion
+  (the SW kernel; the kNN row mask in the late SNF).
 
 Every path runs with the launch counts set to 0 and checks them against
-the counts its design implies, checks retrieval (MAP), and the two
+the counts its design implies, checks retrieval (MAP), and the three
 `benchmark` paths recompute their first block-row with every kernel
 replaced by its plain version: the scores must be identical.
 
 Each phase prints one line or a few; any failure raises, so the script
 exits nonzero and prints no result. The last lines are the card as
-nvidia-smi names it, one JSON object describing the kernels, and the
-verdict `{"ok": true, "device": {...}}`. It needs a CUDA device and the
-CUDA toolkit (nvcc); it uses no network and starts no process that
-outlives it.
+nvidia-smi names it, one JSON object describing the kernels (each with
+its time, its plain version's, the least time the card could take for
+the same work and what bounds that), and the verdict
+`{"ok": true, "device": {...}}`. It needs a CUDA device, the CUDA toolkit
+(nvcc) and g++; it uses no network and starts no process that outlives
+it.
 """
 
 from __future__ import annotations
@@ -43,6 +52,18 @@ import torch
 
 KAPPA = 0.095
 L = 512
+# the H100 SXM's peaks, for the least time a kernel's work could take: its
+# published HBM bytes/s, and the fp32 instructions it issues a second
+# (132 SMs x 128 lanes x 1.98 GHz). The published 67 TFLOP/s counts an FMA
+# as two operations; the kernels' counted operations are adds,
+# subtractions, multiplies, compares and maxes, one instruction each.
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
+# fp32 operations a cell of each aligner's recurrence needs (adds,
+# subtractions and maxes, the running max included)
+ALIGNER_OPS = {"qmax": 5, "dmax": 13, "qmax_uneq": 8, "sw": 11}
+# the legacy surface's unequal gaps, both ways round
+UNEQ_GAPS = ((0.3, 0.8), (0.8, 0.3))
 # the JAX package's own record of this corpus (ssms_scatter qmax / dmax
 # MAP, seed 0): a tempo-warp sensitivity of the synthetic corpus
 JAX_SSMS_MAP = {"ssms_scatter_qmax": 0.4803, "ssms_scatter_dmax": 0.4339}
@@ -78,6 +99,8 @@ def _wrappers() -> dict:
 
     return {"qmax": alignment_cuda.qmax_batch_cuda,
             "dmax": alignment_cuda.dmax_batch_cuda,
+            "qmax_uneq": alignment_cuda.qmax_uneq_batch_cuda,
+            "sw": alignment_cuda.swconstrained_batch_cuda,
             "fused_crp": crp_cuda.fused_binary_crp_batch,
             "binarize": crp_cuda.binarize_matrix_batch,
             "knn_mask": crp_cuda.knn_mask_matrix_batch,
@@ -119,12 +142,39 @@ def _spy(module, name: str, calls: list):
         setattr(module, name, real)
 
 
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least milliseconds the card could take to move `nbytes` and do
+    `ops` fp32 operations (one instruction each), and which of the two
+    bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / FP32_INSTR_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _cells(l1, l2, L: int) -> float:
+    """Valid cells of (B,) length pairs clamped to [0, L]."""
+    return float((l1.clamp(0, L).double() * l2.clamp(0, L).double()).sum())
+
+
+def _aligner_bound(name: str, S, m, n) -> tuple[float, str]:
+    """An aligner reads each pair's valid CRP window once and its two
+    lengths, writes one score, and does ALIGNER_OPS[name] operations a
+    valid cell."""
+    cells = _cells(m, n, S.shape[-1])
+    return _bound(cells + 12 * S.shape[0], ALIGNER_OPS[name] * cells)
+
+
 def _kernel(name: str, source: str, replaces: str, err: float, ms: float,
-            plain_ms: float) -> dict:
+            plain_ms: float, bound: tuple[float, str],
+            library_ms: float | None = None) -> dict:
+    """One entry of the kernels line. `library_ms` stays None: no single
+    PyTorch call computes any of these functions (PERF.md, section 6)."""
     return {"name": name, "route": "cuda",
             "source": f"acoss_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": float(err), "ms": float(ms),
-            "plain_ms": float(plain_ms)}
+            "plain_ms": float(plain_ms), "bound_ms": float(bound[0]),
+            "bound_by": bound[1], "library_ms": library_ms}
 
 
 def phase_environment() -> tuple[str, str]:
@@ -170,42 +220,86 @@ def _bench_crps(dev):
     S = np.zeros((B, L, L), dtype=np.uint8)
     for b in range(B):
         S[b, :m[b], :n[b]] = rng.random((m[b], n[b])) < KAPPA
-    degenerate = [(2, L), (L, 2), (3, 3), (4, 4), (0, 100), (3, 400)]
+    degenerate = [(2, L), (L, 2), (3, 3), (4, 4), (0, 100), (3, 400),
+                  (L, L)]
     Sd = np.zeros((len(degenerate), L, L), dtype=np.uint8)
     for b, (mm, nn) in enumerate(degenerate):
         Sd[b, :mm, :nn] = rng.random((mm, nn)) < 0.5
+    Sd[-1, :2] = 1          # rows 0 and 1 all matches (gap penalties)
     S = np.concatenate([S, Sd])
     m = np.concatenate([m, [d[0] for d in degenerate]]).astype(np.int32)
     n = np.concatenate([n, [d[1] for d in degenerate]]).astype(np.int32)
     return [torch.from_numpy(a).to(dev) for a in (S, m, n)]
 
 
+def _native_fn(name: str):
+    """The port's native C++ (single-core) batched aligner of a kernel."""
+    from acoss_tpu_torch import native
+
+    return getattr(native, {"sw": "swconstrained"}.get(
+        name, name.split("_")[0]) + "_batch_cpu")
+
+
+def _check_native(name: str, got, S, m, n, **kw) -> int:
+    """The kernel's scores on the first 16 bench pairs and the degenerate
+    ones must equal the port's native C++ aligner's bit for bit (a
+    composition independent of the plain scans). Returns the pairs."""
+    idx = list(range(16)) + list(range(128, S.shape[0]))
+    want = _native_fn(name)(*(t[idx].cpu().numpy() for t in (S, m, n)),
+                            **kw)
+    if not np.array_equal(got[idx].cpu().numpy(), want):
+        raise AssertionError(f"{name} {kw}: kernel != native C++")
+    return len(idx)
+
+
 def phase_aligners(dev) -> list[dict]:
+    """qmax, dmax, unequal-gap qmax and SW on the bench CRPs: each bit for
+    bit equal to its plain version and to the native C++ aligners; qmax,
+    dmax and qmax_uneq timed on the bench batch (SW is timed on the
+    EarlyFusion tile's stack, `phase_sw`)."""
     from acoss_tpu_torch.ops import alignment_cuda
 
     S, m, n = _bench_crps(dev)
+    main = (S[:128], m[:128], n[:128])              # the main path's batch
+    cases = [("qmax", "qmax", 65, {}), ("dmax", "dmax", 152, {})]
+    cases += [("qmax_uneq", "qmax_uneq", 101,
+               {"gap_onset": go, "gap_extension": ge})
+              for go, ge in UNEQ_GAPS]
+    cases += [("sw", "swconstrained", 196, {})]
     out = []
-    for name, line in (("qmax", 65), ("dmax", 152)):
-        kern = getattr(alignment_cuda, f"{name}_batch_cuda")
-        ref = getattr(alignment_cuda, f"{name}_batch_ref")
-        got = kern(S, m, n)
-        want = ref(S, m, n)
+    for name, fn, line, kw in cases:
+        kern = getattr(alignment_cuda, f"{fn}_batch_cuda")
+        ref = getattr(alignment_cuda, f"{fn}_batch_ref")
+        got = kern(S, m, n, **kw)
+        want = ref(S, m, n, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = (got != want).nonzero().flatten().tolist()
-            raise AssertionError(f"{name} kernel != plain at pairs {bad}")
-        if float(got[:128].min()) <= 0:
+            raise AssertionError(f"{name} {kw}: kernel != plain at pairs "
+                                 f"{bad}")
+        if float(got[:128].min()) <= 0 or float(got[-1]) <= 0:
             raise AssertionError(f"{name}: implausible scores {got}")
-        main = (S[:128], m[:128], n[:128])          # the main path's batch
-        ms = _cuda_ms(lambda: kern(*main), 20)
-        plain_ms = _cuda_ms(lambda: ref(*main), 3)
+        n_native = _check_native(name, got, S, m, n, **kw)
+        msg = (f"kernel == plain bit for bit on {S.shape[0]} pairs (128 "
+               f"bench + {S.shape[0] - 128} degenerate), == native C++ on "
+               f"{n_native}")
+        if name == "sw" or any(k["name"] == name for k in out):
+            _phase(name, f"{msg} {kw}")
+            continue
+        ms = _cuda_ms(lambda: kern(*main, **kw), 20)
+        plain_ms = _cuda_ms(lambda: ref(*main, **kw), 3)
+        # the single-core C++ baseline on the host, one call
+        host = [t.cpu().numpy() for t in main]
+        t0 = time.perf_counter()
+        _native_fn(name)(*host, **kw)
+        native_ms = 1e3 * (time.perf_counter() - t0)
         err = float((got - want).abs().max())
-        _phase(name, f"kernel == plain bit for bit on {S.shape[0]} pairs "
-               f"(128 bench + 6 degenerate); B=128 L={L}: kernel "
-               f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        _phase(name, f"{msg} {kw}; B=128 L={L}: kernel {ms:.3f} ms, plain "
+               f"{plain_ms:.3f} ms, native C++ on one host core "
+               f"{native_ms:.1f} ms ({native_ms / ms:.1f}x the kernel)")
         out.append(_kernel(name, "alignment.cu",
                            f"acoss_tpu/ops/alignment_pallas.py:{line}", err,
-                           ms, plain_ms))
+                           ms, plain_ms, _aligner_bound(name, *main)))
     return out
 
 
@@ -246,7 +340,7 @@ def phase_fused_crp(desc: dict) -> dict:
 
     # the exact (B=64, L=512, d=12 / 13) inputs a tile hands the kernel
     algo._tile_crps_fused(row, col, capture)
-    worst, times = 0, []
+    worst, times, bounds = 0, [], []
     for X, Y, l1, l2 in inputs:
         # pairs whose rounded k is 0 (l1e = 4, l2e = 1) and a zero length
         l1[0], l2[1], l1[2] = 12, 9, 0
@@ -266,12 +360,22 @@ def phase_fused_crp(desc: dict) -> dict:
         plain_ms = _cuda_ms(lambda: crp_cuda.fused_binary_crp_ref(
             X, Y, l1, l2, KAPPA, 9), 3)
         times.append((ms, plain_ms))
+        # reads the valid rows of X and Y, writes S and the effective
+        # lengths; the CSM (2d + 3 operations a cell), the window and the
+        # two masks (m + 3 a valid window cell)
+        B, _, d = X.shape
+        l1e, l2e = (torch.clamp_min(t - 9 + 1, 0) for t in (l1, l2))
+        bounds.append(_bound(
+            4 * d * float((l1.clamp(0, L) + l2.clamp(0, L)).sum())
+            + B * L * L + 16 * B,
+            (2 * d + 3) * _cells(l1, l2, L) + 12 * _cells(l1e, l2e, L)))
         _phase("fused_crp", f"kernel == plain bit for bit, B={X.shape[0]} "
                f"L={X.shape[1]} d={X.shape[2]}: kernel {ms:.3f} ms, "
                f"plain {plain_ms:.3f} ms")
     return _kernel("fused_crp", "crp.cu", "acoss_tpu/ops/crp_pallas.py:57",
                    worst, np.mean([t[0] for t in times]),
-                   np.mean([t[1] for t in times]))
+                   np.mean([t[1] for t in times]),
+                   (float(np.mean([b[0] for b in bounds])), bounds[0][1]))
 
 
 def _first_block_row(algo, desc: dict, Ds: dict, n_songs: int) -> int:
@@ -396,6 +500,76 @@ def phase_early_snf(dev, fs) -> tuple[dict, dict]:
     return desc, counts
 
 
+def phase_legacy(dev, desc: dict) -> tuple[dict, dict]:
+    """The legacy similarity API on the 15 pairs of the first 6 songs (3
+    cliques): percentile CRPs (host numpy) of their x40-downsampled
+    chroma, then `serra_cover_similarity_measures` with the unequal gaps
+    (0.3, 0.8) on the card, counted. Each distance must equal the one from
+    the native C++ qmax bit for bit, and covers must be nearer than
+    non-covers on average. Then the unequal-gap qmax kernel on each of
+    those (1, M, N) CRPs must equal its plain version bit for bit, and is
+    timed there. Returns the launch counts and the kernel's entry."""
+    from acoss_tpu_torch import native
+    from acoss_tpu_torch.ops import alignment_cuda
+    from acoss_tpu_torch.ops import similarity_legacy as legacy
+
+    go, ge = UNEQ_GAPS[0]
+    songs = [desc["chroma"][i, :int(desc["length"][i])].cpu().numpy()
+             for i in range(6)]
+    pairs = [(i, j) for i in range(6) for j in range(i + 1, 6)]
+    crps = [legacy.cross_recurrent_plot(songs[i], songs[j])
+            for i, j in pairs]
+    t0 = time.perf_counter()
+    dist, counts = _counted("legacy", lambda: [
+        legacy.serra_cover_similarity_measures(
+            c, dis_onset=go, dis_extension=ge, device=dev) for c in crps],
+        {"qmax_uneq": len(pairs)})
+    secs = time.perf_counter() - t0
+    for c, got in zip(crps, dist):
+        score = native.qmax_cpu(c, go, ge)
+        if got != float(np.sqrt(c.shape[1]) / max(score, 1e-12)):
+            raise AssertionError("legacy qmax: kernel != native C++")
+    cover = [d for (i, j), d in zip(pairs, dist) if j == i + 1 and i % 2 == 0]
+    other = [d for (i, j), d in zip(pairs, dist)
+             if not (j == i + 1 and i % 2 == 0)]
+    if not np.isfinite(dist).all() or not np.mean(cover) < np.mean(other):
+        raise AssertionError(f"legacy: implausible distances {dist}")
+    _phase("legacy", f"serra_cover_similarity_measures(dis_onset={go}, "
+           f"dis_extension={ge}) on {dev}, {len(pairs)} pairs of CRPs up to "
+           f"{max(c.shape[0] for c in crps)} x "
+           f"{max(c.shape[1] for c in crps)}: launches "
+           + ", ".join(f"{k} {v}" for k, v in counts.items())
+           + f"; == native C++ bit for bit; mean distance covers "
+           f"{np.mean(cover):.4f}, others {np.mean(other):.4f}; "
+           f"{secs:.3f} s")
+    # the kernel's inputs on this path: one (1, M, N) CRP a launch
+    args = [(torch.from_numpy(np.ascontiguousarray(c, dtype=np.uint8))[None]
+             .to(dev), torch.tensor([c.shape[0]], dtype=torch.int32,
+                                    device=dev),
+             torch.tensor([c.shape[1]], dtype=torch.int32, device=dev))
+            for c in crps]
+    err = 0.0
+    for a in args:
+        got = alignment_cuda.qmax_uneq_batch_cuda(*a, go, ge)
+        want = alignment_cuda.qmax_uneq_batch_ref(*a, go, ge)
+        if not torch.equal(got, want) or not float(got[0]) > 0:
+            raise AssertionError(f"legacy qmax_uneq kernel {got} != plain "
+                                 f"{want}, {tuple(a[0].shape)}")
+        err = max(err, float((got - want).abs().max()))
+    ms = _cuda_ms(lambda: [alignment_cuda.qmax_uneq_batch_cuda(*a, go, ge)
+                           for a in args], 10) / len(args)
+    plain_ms = _cuda_ms(lambda: [alignment_cuda.qmax_uneq_batch_ref(
+        *a, go, ge) for a in args], 1) / len(args)
+    bounds = [_aligner_bound("qmax_uneq", *a) for a in args]
+    _phase("legacy", f"qmax_uneq kernel == plain bit for bit on each of the "
+           f"{len(args)} CRPs; a launch: kernel {ms:.4f} ms, plain "
+           f"{plain_ms:.3f} ms")
+    return counts, _kernel(
+        "qmax_uneq", "alignment.cu", "acoss_tpu/ops/alignment_pallas.py:101",
+        err, ms, plain_ms,
+        (float(np.mean([b[0] for b in bounds])), bounds[0][1]))
+
+
 def _tile(desc: dict):
     return ({k: v[8:16] for k, v in desc.items()},
             {k: v[0:8] for k, v in desc.items()})
@@ -439,8 +613,12 @@ def phase_binarize(desc: dict) -> dict:
     _phase("binarize", f"kernel == plain bit for bit on the EarlySNF tile's "
            f"(256, {L}, {L}) stack + 4 degenerate; kernel {ms:.3f} ms, "
            f"plain {plain_ms:.3f} ms")
+    # reads the valid (l1, l2) window, writes the whole CRP; two compares
+    # and an AND a valid cell
+    cells = _cells(l1, l2, L)
+    bound = _bound(4 * cells + D.shape[0] * (L * L + 8), 3 * cells)
     return _kernel("binarize", "knn.cu", "acoss_tpu/ops/crp_pallas.py:276",
-                   (got.int() - want.int()).abs().max(), ms, plain_ms)
+                   (got.int() - want.int()).abs().max(), ms, plain_ms, bound)
 
 
 def phase_knn_mask(desc: dict) -> dict:
@@ -470,8 +648,11 @@ def phase_knn_mask(desc: dict) -> dict:
     _phase("knn_mask", f"kernel == plain bit for bit on the EarlySNF tile's "
            f"({W.shape[0]}, {n}, {n}) W stack + k=1, k=n and 2 tie "
            f"matrices; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # reads and writes every cell of W (no lengths); a compare and a
+    # select a cell
+    bound = _bound(8 * W.numel() + 4 * W.shape[0], 2 * W.numel())
     return _kernel("knn_mask", "knn.cu", "acoss_tpu/ops/crp_pallas.py:431",
-                   (got - want).abs().max(), ms, plain_ms)
+                   (got - want).abs().max(), ms, plain_ms, bound)
 
 
 def phase_wcsmssm(desc: dict) -> dict:
@@ -483,7 +664,7 @@ def phase_wcsmssm(desc: dict) -> dict:
         EarlySNF(snf_precision="default").tile_scores(*_tile(desc))
     if len(calls) != 2:
         raise AssertionError(f"wcsmssm: {len(calls)} calls a tile")
-    worst_abs, worst_rel, times = 0.0, 0.0, []
+    worst_abs, worst_rel, times, bounds = 0.0, 0.0, [], []
     for (A, Bm, C, l1, l2, K), kw in calls:
         if A.shape != (64, L, L):
             raise AssertionError(f"wcsmssm: captured {tuple(A.shape)}")
@@ -501,6 +682,12 @@ def phase_wcsmssm(desc: dict) -> dict:
         times.append((_cuda_ms(lambda: crp_cuda.wcsmssm_batch(*args, **kw),
                                10),
                       _cuda_ms(lambda: crp_cuda.wcsmssm_ref(*args, **kw), 3)))
+        # reads the valid SSM and CSM windows, writes the whole (2L, 2L)
+        # affinity; ~10 operations (sums, products, a quotient, an exp)
+        # a valid affinity cell
+        valid = _cells(l1, l1, L) + _cells(l2, l2, L) + _cells(l1, l2, L)
+        bounds.append(_bound(4 * valid + 16 * A.shape[0] * L * L,
+                             10 * (valid + _cells(l1, l2, L))))
     ms = float(np.mean([t[0] for t in times]))
     plain_ms = float(np.mean([t[1] for t in times]))
     _phase("wcsmssm", f"kernel within rtol 2e-5 / atol 2e-6 of plain on the "
@@ -508,7 +695,8 @@ def phase_wcsmssm(desc: dict) -> dict:
            f"included): max abs err {worst_abs:.3g}, max rel err "
            f"{worst_rel:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     return _kernel("wcsmssm", "knn.cu", "acoss_tpu/ops/crp_pallas.py:598",
-                   worst_abs, ms, plain_ms)
+                   worst_abs, ms, plain_ms,
+                   (float(np.mean([b[0] for b in bounds])), bounds[0][1]))
 
 
 def _sweep_path(name: str, algo, dev, fs, desc: dict, expect: dict,
@@ -555,7 +743,101 @@ def phase_serra09_full(dev, fs, desc: dict) -> dict:
         {"ssms": 0.40, "": 0.99})
 
 
+def phase_early_fusion(dev, fs) -> tuple[dict, dict]:
+    """benchmark(EarlyFusion()); returns the descriptors it extracted (on
+    the card) and its launch counts."""
+    from acoss_tpu_torch.benchmarking.algorithms import EarlyFusion
+    from acoss_tpu_torch.convert import descriptors_from_numpy
+
+    class KeepDescriptors(EarlyFusion):
+        def extract_descriptors(self, fs, device="cuda"):
+            self.desc = super().extract_descriptors(fs, device=device)
+            return self.desc
+
+    algo = KeepDescriptors()
+    T = _swept_tiles(fs.n_songs, algo.TILE)
+    torch.cuda.reset_peak_memory_stats()
+    # one SW launch a tile, one kNN row-mask launch in each late SNF
+    stats, Ds, times, counts = _benchmark_path(
+        "early_fusion", algo, dev, fs, {"sw": T, "knn_mask": 2})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_map("early_fusion", stats, {"": 0.99})
+    pairs = fs.n_songs * (fs.n_songs - 1) // 2
+    desc = descriptors_from_numpy(algo.desc, dev)
+    blocks = algo.desc["length"]
+    _phase("early_fusion", f"benchmark(EarlyFusion) on {dev}: "
+           f"{fs.n_songs} songs of {blocks.min()}..{blocks.max()} blocks, "
+           f"padded to {desc['mfccs'].shape[1]}; {T} tiles, {pairs} pairs; "
+           "launches " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    _phase("early_fusion", ", ".join(f"{k} MAP {s.map:.4f} MR {s.mr:.3f}"
+                                     for k, s in stats.items()))
+    _phase("early_fusion", f"extract {times['extract']:.2f} s, sweep "
+           f"{times['sweep']:.2f} s, eval {times['eval']:.2f} s "
+           f"(late fusion included); {pairs / times['sweep']:.1f} "
+           f"fully-scored pairs/s; peak device memory {peak:.2f} GiB")
+    n = _first_block_row(algo, desc, Ds, fs.n_songs)
+    _phase("early_fusion", f"first block-row ({n} tiles) recomputed by the "
+           f"plain versions on {dev}: identical scores")
+    return desc, counts
+
+
+def phase_sw(desc: dict) -> dict:
+    from acoss_tpu_torch.benchmarking.algorithms import EarlyFusion
+    from acoss_tpu_torch.ops import alignment_cuda
+
+    calls = []
+    with _spy(alignment_cuda, "swconstrained_batch_cuda", calls):
+        EarlyFusion().tile_scores(*_tile(desc))
+    (S, m, n), kw = calls[0]
+    Lf = desc["mfccs"].shape[1]
+    if len(calls) != 1 or S.shape != (256, Lf, Lf):
+        raise AssertionError(f"sw: {len(calls)} calls, {tuple(S.shape)}")
+    # degenerate pairs: sides of 2 and 3, a zero length, rows 0 and 1 all
+    # matches
+    rng = np.random.default_rng(1)
+    sizes = [(2, Lf), (Lf, 2), (3, 3), (0, 100), (Lf, Lf)]
+    Sd = np.zeros((len(sizes), Lf, Lf), np.uint8)
+    for b, (mm, nn) in enumerate(sizes):
+        Sd[b, :mm, :nn] = rng.random((mm, nn)) < 0.1
+    Sd[-1, :2] = 1
+    Sx = torch.cat([S, torch.from_numpy(Sd).to(S.device)])
+    mx = torch.cat([m, torch.tensor([z[0] for z in sizes], dtype=m.dtype,
+                                    device=m.device)])
+    nx = torch.cat([n, torch.tensor([z[1] for z in sizes], dtype=n.dtype,
+                                    device=n.device)])
+    got = alignment_cuda.swconstrained_batch_cuda(Sx, mx, nx, **kw)
+    want = alignment_cuda.swconstrained_batch_ref(Sx, mx, nx, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero().flatten().tolist()
+        raise AssertionError(f"sw kernel != plain at pairs {bad}")
+    # a side below 3 or a zero length scores 0; (3, 3) may score a match
+    zero = [256 + b for b, z in enumerate(sizes) if min(z) < 3]
+    if float(got[:256].min()) <= 0 or float(got[-1]) <= 0 \
+            or float(got[zero].abs().max()) != 0:
+        raise AssertionError(f"sw: implausible scores {got}")
+    ms = _cuda_ms(lambda: alignment_cuda.swconstrained_batch_cuda(
+        S, m, n, **kw), 20)
+    plain_ms = _cuda_ms(lambda: alignment_cuda.swconstrained_batch_ref(
+        S, m, n, **kw), 3)
+    host = [t.cpu().numpy() for t in (S, m, n)]
+    t0 = time.perf_counter()
+    _native_fn("sw")(*host, **kw)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    _phase("sw", f"kernel == plain bit for bit on the EarlyFusion tile's "
+           f"({S.shape[0]}, {Lf}, {Lf}) stack (lengths "
+           f"{int(m.min())}..{int(m.max())}) + {len(sizes)} degenerate; "
+           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, native C++ on one "
+           f"host core {native_ms:.1f} ms ({native_ms / ms:.1f}x the "
+           f"kernel)")
+    return _kernel("sw", "alignment.cu",
+                   "acoss_tpu/ops/alignment_pallas.py:196",
+                   (got - want).abs().max(), ms, plain_ms,
+                   _aligner_bound("sw", S, m, n))
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi, kind = phase_environment()
     dev = torch.device("cuda")
     phase_build()
@@ -568,6 +850,9 @@ def main() -> int:
     desc = _descriptors(dev, fs)
     kernels["fused_crp"] = phase_fused_crp(desc)
     launches = {"main_path": phase_main_path(dev, fs, desc)}
+    # qmax_uneq's entry is timed at its path's shapes, one CRP a launch
+    # (phase_aligners printed its time on the bench batch)
+    launches["legacy"], kernels["qmax_uneq"] = phase_legacy(dev, desc)
     del desc
     snf_desc, launches["early_snf"] = phase_early_snf(dev, fs)
     for phase in (phase_binarize, phase_knn_mask, phase_wcsmssm):
@@ -575,13 +860,26 @@ def main() -> int:
         kernels[k["name"]] = k
     launches["early_snf_fast"] = phase_early_snf_fast(dev, fs, snf_desc)
     launches["serra09_full"] = phase_serra09_full(dev, fs, snf_desc)
+    del snf_desc
+    ef_desc, launches["early_fusion"] = phase_early_fusion(dev, fs)
+    kernels["sw"] = phase_sw(ef_desc)
     # each kernel's launches are read from the path it was ported for
     for path, names in (("main_path", ("qmax", "dmax", "fused_crp")),
+                        ("legacy", ("qmax_uneq",)),
                         ("early_snf", ("binarize", "knn_mask")),
-                        ("early_snf_fast", ("wcsmssm",))):
+                        ("early_snf_fast", ("wcsmssm",)),
+                        ("early_fusion", ("sw",))):
         for name in names:
             kernels[name]["launches"] = launches[path][name]
             kernels[name]["path"] = path
+    # the order of redesign work: the time each kernel spends above its
+    # bound over its path's launches
+    above = {k["name"]: k["launches"] * (k["ms"] - k["bound_ms"])
+             for k in kernels.values()}
+    _phase("above_bound", ", ".join(
+        f"{name} {ms:.1f} ms" for name, ms in
+        sorted(above.items(), key=lambda kv: -kv[1])))
+    _phase("total",f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-"""Profile one warm tile of each SNF-slice path of the PyTorch/CUDA port.
+"""Profile one warm tile of each SNF-slice path and of EarlyFusion in the
+PyTorch/CUDA port.
 
     python3 scripts/torch_tile_profile.py [--trace-dir DIR] [--reps 7]
+        [--paths early_snf,early_snf_fast,serra09_full,early_fusion]
 
 Run from the root of a checkout on a machine with a CUDA device. It builds
-the covers80-geometry corpus of `chip_smoke.py` (160 songs, L = 512),
-extracts the EarlySNF descriptors on the card, and for tile (1, 0)
-(8 x 8 pairs) of EarlySNF (parity), EarlySNF (throughput) and
-Serra09(do_ssms=True) prints the median wall of `--reps` warm tiles, one
+the covers80-geometry corpus of `chip_smoke.py` (160 songs), extracts the
+descriptors the chosen paths need (EarlySNF's on the card, L = 512;
+EarlyFusion's on the host, L = 576), and for tile (1, 0) (8 x 8 pairs) of
+EarlySNF (parity), EarlySNF (throughput), Serra09(do_ssms=True) and
+EarlyFusion prints the median wall of `--reps` warm tiles, one
 `torch.profiler` tile's device time by kernel and its idle share
 (1 - summed kernel time / profiled wall), and the peak device memory.
 With --trace-dir it also writes one Chrome trace per path there.
@@ -27,8 +30,14 @@ sys.path.insert(0, os.getcwd())
 
 import chip_smoke  # noqa: E402
 from acoss_tpu_torch.benchmarking.algorithms import (  # noqa: E402
-    EarlySNF, Serra09)
+    EarlyFusion, EarlySNF, Serra09)
 from acoss_tpu_torch.convert import descriptors_from_numpy  # noqa: E402
+
+
+PATHS = {"early_snf": EarlySNF,
+         "early_snf_fast": lambda: EarlySNF(snf_precision="default"),
+         "serra09_full": lambda: Serra09(do_ssms=True),
+         "early_fusion": EarlyFusion}
 
 
 def _kernel_rows(prof) -> list:
@@ -46,21 +55,27 @@ def main() -> int:
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--top", type=int, default=22)
+    ap.add_argument("--paths", default=",".join(PATHS))
     args = ap.parse_args()
+    paths = args.paths.split(",")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     fs = chip_smoke._corpus()
-    t0 = time.perf_counter()
-    desc = descriptors_from_numpy(
-        EarlySNF().extract_descriptors(fs, device="cuda"), "cuda")
-    torch.cuda.synchronize()
-    print(f"extract {time.perf_counter() - t0:.2f} s", flush=True)
-    row, col = chip_smoke._tile(desc)
-    for name, algo in (("early_snf", EarlySNF()),
-                       ("early_snf_fast", EarlySNF(snf_precision="default")),
-                       ("serra09_full", Serra09(do_ssms=True))):
+    descs = {}
+    for name in paths:
+        algo = PATHS[name]()
+        # the three SNF-slice paths share EarlySNF's descriptors
+        key = EarlyFusion if name == "early_fusion" else EarlySNF
+        if key not in descs:
+            t0 = time.perf_counter()
+            descs[key] = descriptors_from_numpy(
+                key().extract_descriptors(fs, device="cuda"), "cuda")
+            torch.cuda.synchronize()
+            print(f"extract {key.NAME} {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+        row, col = chip_smoke._tile(descs[key])
         for _ in range(2):
             algo.tile_scores(row, col)
         torch.cuda.synchronize()

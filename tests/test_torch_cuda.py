@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from acoss_tpu_torch.benchmarking.algorithms import EarlySNF, Serra09
+from acoss_tpu_torch.benchmarking.algorithms import (EarlyFusion, EarlySNF,
+                                                     Serra09)
 from acoss_tpu_torch.convert import descriptors_from_numpy
 from acoss_tpu_torch.data import make_synthetic_dataset
 from acoss_tpu_torch.ops import alignment, alignment_cuda, crp_cuda
@@ -39,15 +40,32 @@ def _crps(seed, B=32, L=512, density=0.095):
     return S, m, n
 
 
-@pytest.mark.parametrize("name", ["qmax", "dmax"])
-def test_aligner_kernel_bit_equal_to_plain(dev, name):
-    S, m, n = (torch.from_numpy(a).to(dev) for a in _crps(0))
-    wrapper = getattr(alignment_cuda, f"{name}_batch_cuda")
+# wrapper, plain version and keyword arguments of each aligner kernel
+ALIGNERS = {
+    "qmax": ("qmax_batch_cuda", "qmax_batch_ref", {}),
+    "dmax": ("dmax_batch_cuda", "dmax_batch_ref", {}),
+    "qmax_uneq_03_08": ("qmax_uneq_batch_cuda", "qmax_uneq_batch_ref",
+                        {"gap_onset": 0.3, "gap_extension": 0.8}),
+    "qmax_uneq_08_03": ("qmax_uneq_batch_cuda", "qmax_uneq_batch_ref",
+                        {"gap_onset": 0.8, "gap_extension": 0.3}),
+    "sw": ("swconstrained_batch_cuda", "swconstrained_batch_ref", {}),
+}
+
+
+@pytest.mark.parametrize("L", [512, 576])
+@pytest.mark.parametrize("name", list(ALIGNERS))
+def test_aligner_kernel_bit_equal_to_plain(dev, name, L):
+    """At the Serra09 (512) and EarlyFusion (576) widths, with degenerate
+    pairs and a pair whose rows 0 and 1 are all matches."""
+    S, m, n = (torch.from_numpy(a).to(dev) for a in _crps(0, L=L))
+    S[5, :2, :n[5]] = 1
+    wname, rname, kw = ALIGNERS[name]
+    wrapper = getattr(alignment_cuda, wname)
     before = wrapper.launches
-    got = wrapper(S, m, n)
+    got = wrapper(S, m, n, **kw)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    want = getattr(alignment_cuda, f"{name}_batch_ref")(S, m, n)
+    want = getattr(alignment_cuda, rname)(S, m, n, **kw)
     assert torch.equal(got, want)
     assert float(got[5:].min()) > 0
 
@@ -171,9 +189,57 @@ def test_serra09_ssms_tile_kernel_path_equals_plain(dev):
         assert torch.equal(got[k], want[k]), k
 
 
-def test_unported_kernels_raise_on_cuda(dev):
+def test_early_fusion_tile_kernel_path_equals_plain(dev):
+    """The tile's one SW call launches the kernel and gives the scores of
+    the SW kernel's plain version."""
+    fs = make_synthetic_dataset(n_cliques=2, clique_size=2, seed=0,
+                                base_duration=300.0, beat_period=30.0)
+    algo = EarlyFusion()
+    d = descriptors_from_numpy(algo.extract_descriptors(fs, device=dev),
+                               dev)
+    before = alignment_cuda.swconstrained_batch_cuda.launches
+    got = algo.tile_scores(d, d)
+    torch.cuda.synchronize()
+    assert alignment_cuda.swconstrained_batch_cuda.launches == before + 1
+    want = algo.tile_scores(d, d, plain=True)
+    for k in algo.SIMILARITY_TYPES:
+        assert torch.equal(got[k], want[k]), k
+        assert float(got[k].max()) > 0, k
+
+
+# dispatcher, the wrapper it must launch (None: no kernel, the plain scan)
+# and keyword arguments; inside and outside the JAX package's guards
+DISPATCH = [
+    ("swconstrained", "swconstrained_batch_cuda", {}),
+    ("swconstrained", "swconstrained_batch_cuda",
+     {"gap_opening": 0.2, "mismatch_score": 0.3}),
+    ("qmax", "qmax_uneq_batch_cuda", {"gap_onset": 0.3,
+                                      "gap_extension": 0.6}),
+    ("qmax", "qmax_uneq_batch_cuda", {"gap_onset": -0.2,
+                                      "gap_extension": 0.4}),
+    ("qmax", "qmax_batch_cuda", {"gap_onset": -0.3, "gap_extension": -0.3}),
+    ("dmax", "dmax_batch_cuda", {"gap_onset": 1.5, "gap_extension": 1.5}),
+    ("dmax", "dmax_batch_cuda", {"gap_onset": -0.2, "gap_extension": -0.2}),
+    ("dmax", None, {"gap_onset": 0.3, "gap_extension": 0.8}),
+]
+
+
+def test_aligner_dispatch_on_cuda(dev):
+    """The dispatchers launch a kernel for every CUDA batch, inside the JAX
+    package's guards and outside them, and give the plain scan's scores;
+    only dmax with unequal gaps (no kernel) takes the plain scan. The
+    single-pair functions go through the dispatchers."""
     S, m, n = (torch.from_numpy(a).to(dev) for a in _crps(1, B=8, L=64))
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        alignment.swconstrained_batch_best(S, m, n)
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        alignment.qmax_batch_best(S, m, n, gap_onset=0.3, gap_extension=0.6)
+    S[5, :2, :n[5]] = 1
+    wrappers = {w: getattr(alignment_cuda, w) for _, w, _ in DISPATCH if w}
+    for fn, wname, kw in DISPATCH:
+        before = {w: f.launches for w, f in wrappers.items()}
+        got = getattr(alignment, f"{fn}_batch_best")(S, m, n, **kw)
+        one = getattr(alignment, fn)(S[5], m[5], n[5], **kw)
+        torch.cuda.synchronize()
+        after = {w: f.launches for w, f in wrappers.items()}
+        assert after == {w: before[w] + 2 * (w == wname) for w in before}, \
+            (fn, kw)
+        want = getattr(alignment, f"{fn}_batch")(S, m, n, **kw)
+        assert torch.equal(got, want), (fn, kw)
+        assert float(one) == float(want[5]), (fn, kw)

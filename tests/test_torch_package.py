@@ -35,7 +35,10 @@ def test_port_imports_no_jax():
               "acoss_tpu_torch.ops.resize", "acoss_tpu_torch.ops.scattering",
               "acoss_tpu_torch.ops.ssm_features",
               "acoss_tpu_torch.benchmarking.algorithms.serra09",
-              "acoss_tpu_torch.benchmarking.algorithms.early_snf"):
+              "acoss_tpu_torch.benchmarking.algorithms.early_snf",
+              "acoss_tpu_torch.benchmarking.algorithms.early_fusion",
+              "acoss_tpu_torch.ops.similarity_legacy",
+              "acoss_tpu_torch.native"):
         assert m in out["modules"]
 
 
@@ -56,15 +59,22 @@ def test_library_name_tracks_the_sources(tmp_path):
 
 
 def test_library_declares_every_c_entry_point():
-    """Each C function the wrappers call is declared in `library()` with
-    pointer-width arguments (ctypes would otherwise pass a 32-bit int and
-    cut the pointer), checked against the sources without building."""
+    """Each C function of the sources is declared in `_build.SIGNATURES`,
+    parameter by parameter, with pointer-width arguments for pointers
+    (ctypes would otherwise pass a 32-bit int and cut the pointer),
+    checked against the sources without building."""
+    import ctypes
     import re
 
     src = "\n".join(p.read_text() for p in _build.sources())
-    exported = set(re.findall(r"^(?:int|size_t) (acoss_\w+)\(", src, re.M))
-    assert {"acoss_qmax", "acoss_dmax", "acoss_fused_crp", "acoss_binarize",
-            "acoss_knn_mask", "acoss_wcsmssm"} <= exported
-    body = (REPO / "acoss_tpu_torch/ops/_build.py").read_text()
-    for name in exported - {"acoss_qmax", "acoss_dmax"}:
-        assert f"lib.{name}.argtypes" in body, name
+    exported = dict(re.findall(
+        r"^(?:int|size_t|const char\*) (acoss_\w+)\(([^)]*)\)", src, re.M))
+    assert {"acoss_qmax", "acoss_dmax", "acoss_qmax_uneq", "acoss_sw",
+            "acoss_fused_crp", "acoss_binarize", "acoss_knn_mask",
+            "acoss_wcsmssm", "acoss_error_string"} <= set(exported)
+    assert set(exported) == set(_build.SIGNATURES)
+    for name, params in exported.items():
+        want = [ctypes.c_void_p if "*" in p else
+                ctypes.c_float if "float" in p else ctypes.c_int
+                for p in params.split(",")]
+        assert _build.SIGNATURES[name][0] == want, name
