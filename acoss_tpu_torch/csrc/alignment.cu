@@ -13,21 +13,38 @@
 // steps of N independent cells. The work per cell is a handful of fp32
 // max/add operations, and the CRP is read once (B*M*N bytes), so neither
 // memory bandwidth nor arithmetic is the limit: the latency of one row step
-// (shared-memory reads, a block barrier) times M is.
+// times M is. A row step that waits for its CRP row to come from device
+// memory, or for every thread of a large block, takes ~0.5 us.
 //
-// Design: one thread block per pair, threads striding over the N columns.
-// The previous D rows (2 for qmax and SW, 3 for dmax) live in shared memory
-// as a ring, so a row step touches device memory only to read its CRP bytes
-// (the S values of rows i-1..i-3 that dmax adds, and the predecessors' S
-// that set the unequal-gap and SW penalties, come from the L1 cache).
-// One __syncthreads() per row separates writing row i from reading it as
-// row i-1. Cells outside (m_len, n_len) are never computed (they stay 0),
-// so the kernel needs no zero-padding argument and no guard on the gaps.
-// Each thread keeps a running max, reduced over the block at the end.
-// Every operation is the same fp32 operation in the same order as the
-// plain version (the additions as __fadd_rn / __fsub_rn, so nothing is
-// contracted), so the scores are bit-equal to it, also where the gaps
-// (SW's -0.7) are not exact in fp32.
+// dmax (the Serra09 main path's): one block per pair, each thread owning a
+// run of kCols consecutive columns (128 threads x 4 at N = 512). The D rows
+// i-1..i-3 of the run and the S rows i-1, i-2 that dmax adds live in
+// registers; the values left of the run (D row i-1 at j0-3..j0-1, rows i-2
+// and i-3 at j0-1) come from the next lane down by __shfl_up_sync, and
+// across a warp boundary through a double-buffered shared slot, so a row
+// step has one barrier of four warps and no shared-memory D traffic. The
+// CRP arrives ahead of the recurrence: thread 0 keeps kStages chunks of up
+// to 16 rows in flight as TMA bulk copies (cp.async.bulk) into a ring of
+// shared-memory stages, each completing on its own mbarrier, so the
+// threads wait once a chunk, never on device memory, and read each row
+// as one 32-bit word of 4 columns. What is left is the row step itself
+// (its barrier, the exchange and the byte conversions take about twice
+// the time of its 13 operations a cell), one SM a pair.
+//
+// qmax, unequal-gap qmax and SW: one block per pair, threads striding over
+// the N columns; the previous D rows live in shared memory as a ring, a
+// row step reads its CRP bytes (and the predecessors' S that set the
+// unequal-gap and SW penalties) through the L1 cache, and one
+// __syncthreads() per row separates writing row i from reading it as row
+// i-1.
+//
+// In all four, cells outside (m_len, n_len) are never computed (they stay
+// 0), so the kernels need no zero-padding argument and no guard on the
+// gaps. Each thread keeps a running max, reduced over the block at the
+// end. Every operation is the same fp32 operation in the same order as the
+// plain version (the additions as __fadd_rn / __fsub_rn where a product
+// could be contracted), so the scores are bit-equal to it, also where the
+// gaps (SW's -0.7) are not exact in fp32.
 //
 // The TPU kernels' transposed pair-on-lane layout, pre-rolled carries,
 // -BIG row/column biases and block_b/block_t tiling are TPU choices and are
@@ -92,55 +109,230 @@ qmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
     out[b] = (m_len[b] >= 3 && n_len[b] >= 3) ? best : 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// dmax: one block per pair, each thread owning kCols consecutive columns;
+// the D rows i-1..i-3 live in registers, the CRP rows arrive in a ring of
+// shared-memory stages by TMA bulk copies (see the note at the top).
+constexpr int kStages = 4;        // chunks of CRP rows in flight
+constexpr int kMaxBlock = 512;    // threads a pair (registers: 128 each)
+constexpr int kStageBudget = 96 * 1024;   // bytes of all the stages
+
+// Rows a chunk holds at row length N, and the bytes of one stage: the
+// chunk's rows after up to 15 bytes of alignment offset, plus slack for
+// the runs that reach past N and the last word a run's reads touch.
+__host__ __device__ __forceinline__ int chunk_rows(int N) {
+  const int r = kStageBudget / kStages / (N > 0 ? N : 1);
+  return r < 1 ? 1 : r > 16 ? 16 : r;
+}
+
+__host__ __device__ __forceinline__ int stage_bytes(int N, int cols) {
+  return (16 + chunk_rows(N) * N + 32 * cols + 16 + 15) & ~15;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// Thread 0 only: copy CRP bytes [start, stop) of global memory into the
+// stage, byte g to stage[(start & 15) + g - start]. The 16-byte aligned
+// interior goes by one TMA bulk copy that completes on `bar`; the few
+// bytes before and after it are copied by this thread, before its arrive
+// (whose release makes them visible with the copy).
+__device__ void issue_chunk(const uint8_t* start, const uint8_t* stop,
+                            uint8_t* stage, uint64_t* bar) {
+  const uintptr_t s = (uintptr_t)start, e = (uintptr_t)stop;
+  uintptr_t a = (s + 15) & ~(uintptr_t)15, z = e & ~(uintptr_t)15;
+  if (a >= z) a = z = e;               // too short: all by this thread
+  uint8_t* dst = stage + (s & 15);        // dst[g - s] is the slot of g
+  for (uintptr_t g = s; g < a; ++g) dst[g - s] = *(const uint8_t*)g;
+  for (uintptr_t g = z; g < e; ++g) dst[g - s] = *(const uint8_t*)g;
+  const unsigned bytes = (unsigned)(z - a);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  if (bytes > 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(dst + (a - s))), "l"((const void*)a), "r"(bytes),
+           "r"(smem_addr(bar))
+        : "memory");
+}
+
+// Byte c of w as a float, exactly: the bits of 2^23 + byte, less 2^23
+// (a byte permute and an add, where a conversion would take a slower
+// unit).
+__device__ __forceinline__ float byte_float(uint32_t w, int c) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, c | 0x7540)) -
+         8388608.0f;
+}
+
+// The 4 bytes at byte offset q of a word array.
+__device__ __forceinline__ uint32_t bytes4(const uint32_t* w, int q) {
+  const uint32_t lo = w[q >> 2];
+  if ((q & 3) == 0) return lo;
+  return __funnelshift_r(lo, w[(q >> 2) + 1], 8 * (q & 3));
+}
+
+template <int kCols>
+__global__ void __launch_bounds__(kMaxBlock)
 dmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
             const int* __restrict__ n_len, int M, int N, float gap,
             float* __restrict__ out) {
-  extern __shared__ float sh[];
-  float* d0 = sh;          // D row i (being written)
-  float* d1 = sh + N;      // D row i-1
-  float* d2 = sh + 2 * N;  // D row i-2
-  float* d3 = sh + 3 * N;  // D row i-3
+  extern __shared__ __align__(128) uint8_t stages[];
+  __shared__ uint64_t full[kStages];
+  // the last three D values of each warp's run, double-buffered by row
+  __shared__ float xch[2][kMaxBlock / 32][3];
+  __shared__ float red[kMaxBlock / 32];
   const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   const int m = min(m_len[b], M), n = min(n_len[b], N);
-  for (int j = threadIdx.x; j < 4 * N; j += kThreads) sh[j] = 0.0f;
-  __syncthreads();
+  const int j0 = threadIdx.x * kCols;
+  const int R = chunk_rows(N), sb = stage_bytes(N, kCols);
   const uint8_t* Sb = S + (size_t)b * M * N;
   float best = 0.0f;
-  for (int i = 3; i < m; ++i) {
-    const uint8_t* s0 = Sb + (size_t)i * N;   // S row i
-    const uint8_t* s1 = s0 - N;               // S row i-1
-    const uint8_t* s2 = s1 - N;               // S row i-2
-    for (int j = threadIdx.x; j < N; j += kThreads) {
-      float v = 0.0f;
-      if (j >= 3 && j < n) {
-        const float a1 = (float)__ldg(s1 + j);       // S[i-1, j]
-        const float a2 = (float)__ldg(s2 + j);       // S[i-2, j]
-        const float c1 = (float)__ldg(s0 + j - 1);   // S[i, j-1]
-        const float c2 = (float)__ldg(s0 + j - 2);   // S[i, j-2]
-        const float p1 = d1[j - 1];
-        const float p2 = d2[j - 1] + a1;
-        const float p3 = d1[j - 2] + c1;
-        const float p4 = (d3[j - 1] + a2) + a1;
-        const float p5 = (d1[j - 3] + c2) + c1;
+  if (m_len[b] >= 4 && n_len[b] >= 4) {
+    // chunk c holds rows 1 + c*R .. 1 + (c+1)*R - 1 (row 0 is never read)
+    const int chunks = (m - 1 + R - 1) / R;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(smem_addr(&full[s])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int c = 0; c < kStages && c < chunks; ++c)
+        issue_chunk(Sb + (size_t)(1 + c * R) * N,
+                    Sb + (size_t)min(1 + (c + 1) * R, m) * N,
+                    stages + c * sb, &full[c]);
+    }
+    __syncthreads();
+    // D rows i-1, i-2, i-3 of the run, and of the columns left of it:
+    // ld1 at j0-3 .. j0-1 (row i-1), ld2 and ld3 at j0-1 (rows i-2, i-3);
+    // f1, f2: S rows i-1 and i-2 of the run as floats
+    float d1[kCols], d2[kCols], d3[kCols], f1[kCols], f2[kCols];
+    float ld1[3] = {0.0f, 0.0f, 0.0f}, ld2 = 0.0f, ld3 = 0.0f;
+    bool ok[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      d1[c] = d2[c] = d3[c] = f1[c] = f2[c] = 0.0f;
+      ok[c] = j0 + c >= 3 && j0 + c < n;
+    }
+    // row i is row r of chunk c, in stage s; the run's bytes of row i
+    // start at byte q of the stage, 4-aligned for every row and chunk
+    // when S and N are
+    int c = 0, r = 0, s = 0;
+    int q = (int)((uintptr_t)(Sb + N) & 15) + j0;
+    const bool aligned = ((uintptr_t)Sb & 3) == 0 && (N & 3) == 0;
+    for (int i = 1; i < m; ++i) {
+      if (r == 0) mbar_wait(&full[s], (c / kStages) & 1);
+      // S row i: es[2 + k] = S[i, j0 + k], es[0..1] = S[i, j0-2 .. j0-1]
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(stages + s * sb);
+      float es[kCols + 2];
+      const uint32_t left = j0 < 4 ? 0u
+                            : aligned ? w[(q >> 2) - 1] >> 16
+                                      : bytes4(w, q - 2);
+      es[0] = byte_float(left, 0);
+      es[1] = byte_float(left, 1);
+#pragma unroll
+      for (int g = 0; g < kCols / 4; ++g) {
+        const uint32_t v = aligned ? w[(q >> 2) + g] : bytes4(w, q + 4 * g);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) es[2 + 4 * g + e] = byte_float(v, e);
+      }
+      // e1[3 + k] = D[i-1, j0 + k], e1[0..2] = D[i-1, j0-3 .. j0-1]
+      float e1[kCols + 3];
+      e1[0] = ld1[0];
+      e1[1] = ld1[1];
+      e1[2] = ld1[2];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) e1[3 + k] = d1[k];
+      float d0[kCols];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const float a1 = f1[k];                   // S[i-1, j]
+        const float a2 = f2[k];                   // S[i-2, j]
+        const float c1 = es[1 + k];               // S[i, j-1]
+        const float c2 = es[k];                   // S[i, j-2]
+        const float p1 = e1[2 + k];
+        const float p2 = (k == 0 ? ld2 : d2[k - 1]) + a1;
+        const float p3 = e1[1 + k] + c1;
+        const float p4 = ((k == 0 ? ld3 : d3[k - 1]) + a2) + a1;
+        const float p5 = (e1[k] + c2) + c1;
         const float m5 = fmaxf(fmaxf(fmaxf(p1, p2), p3), fmaxf(p4, p5));
         // max over paths of (p - gap) == (max over paths of p) - gap: a
         // rounded subtraction is monotone, so this is exact.
-        v = __ldg(s0 + j) ? m5 + 1.0f : fmaxf(m5 - gap, 0.0f);
+        const float v = es[2 + k] != 0.0f ? m5 + 1.0f
+                                          : fmaxf(m5 - gap, 0.0f);
+        // rows 0..2 stay 0: the recurrence starts at row 3
+        d0[k] = ok[k] && i >= 3 ? v : 0.0f;
+        best = fmaxf(best, d0[k]);
       }
-      d0[j] = v;
-      best = fmaxf(best, v);
+      // the run's last three values go to the next thread's ld1
+      float nl[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        nl[k] = __shfl_up_sync(0xffffffffu, d0[kCols - 3 + k], 1);
+      if (lane == 31) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) xch[i & 1][warp][k] = d0[kCols - 3 + k];
+      }
+      // every thread has read row i (and, at a chunk's last row, the
+      // chunk), and the warps' last values are out
+      __syncthreads();
+      if (lane == 0 && warp > 0) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) nl[k] = xch[i & 1][warp - 1][k];
+      }
+      if (threadIdx.x == 0) {
+        nl[0] = nl[1] = nl[2] = 0.0f;
+        // the chunk is consumed: its stage takes chunk c + kStages
+        const int cn = c + kStages;
+        if (r == R - 1 && cn < chunks)
+          issue_chunk(Sb + (size_t)(1 + cn * R) * N,
+                      Sb + (size_t)min(1 + (cn + 1) * R, m) * N,
+                      stages + s * sb, &full[s]);
+      }
+      ld3 = ld2;
+      ld2 = ld1[2];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) ld1[k] = nl[k];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        d3[k] = d2[k];
+        d2[k] = d1[k];
+        d1[k] = d0[k];
+        f2[k] = f1[k];
+        f1[k] = es[2 + k];
+      }
+      q += N;
+      if (++r == R) {
+        r = 0;
+        ++c;
+        s = s + 1 == kStages ? 0 : s + 1;
+        q = (int)((uintptr_t)(Sb + (size_t)(1 + c * R) * N) & 15) + j0;
+      }
     }
-    __syncthreads();
-    float* t = d3;
-    d3 = d2;
-    d2 = d1;
-    d1 = d0;
-    d0 = t;
   }
-  best = block_max(best);
-  if (threadIdx.x == 0)
-    out[b] = (m_len[b] >= 4 && n_len[b] >= 4) ? best : 0.0f;
+  // max over the block
+  for (int o = 16; o > 0; o >>= 1)
+    best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, o));
+  if (lane == 0) red[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < nwarps; ++w) best = fmaxf(best, red[w]);
+    out[b] = best;
+  }
 }
 
 // Qmax with gap_onset != gap_extension: the gap branch subtracts each
@@ -266,6 +458,21 @@ int launch(Kernel kernel, int rows, int B, int N, int device,
   return (int)cudaGetLastError();
 }
 
+template <int kCols>
+cudaError_t launch_dmax(int B, int threads, size_t smem, cudaStream_t stream,
+                        const uint8_t* S, const int* m_len, const int* n_len,
+                        int M, int N, float gap, float* out) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dmax_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  dmax_kernel<kCols><<<B, threads, smem, stream>>>(S, m_len, n_len, M, N,
+                                                   gap, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -280,8 +487,32 @@ int acoss_qmax(const uint8_t* S, const int* m_len, const int* n_len, int B,
 int acoss_dmax(const uint8_t* S, const int* m_len, const int* n_len, int B,
                int M, int N, float gap, float* out, int device,
                void* stream) {
-  return launch(dmax_kernel, 4, B, N, device, (cudaStream_t)stream, S,
-                m_len, n_len, M, N, gap, out);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (N > 32 * kMaxBlock) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  // 4 columns a thread up to N = 2048 (128 threads at N = 512), then 8,
+  // 16, 32: at most kMaxBlock threads
+  int cols = 4;
+  while (N > cols * kMaxBlock) cols *= 2;
+  const int warps = (N + 32 * cols - 1) / (32 * cols);
+  const int threads = 32 * (warps > 0 ? warps : 1);
+  const size_t smem = (size_t)kStages * stage_bytes(N, cols);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cols == 4)
+    err = launch_dmax<4>(B, threads, smem, st, S, m_len, n_len, M, N, gap,
+                         out);
+  else if (cols == 8)
+    err = launch_dmax<8>(B, threads, smem, st, S, m_len, n_len, M, N, gap,
+                         out);
+  else if (cols == 16)
+    err = launch_dmax<16>(B, threads, smem, st, S, m_len, n_len, M, N, gap,
+                          out);
+  else
+    err = launch_dmax<32>(B, threads, smem, st, S, m_len, n_len, M, N, gap,
+                          out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 int acoss_qmax_uneq(const uint8_t* S, const int* m_len, const int* n_len,

@@ -6,31 +6,44 @@
 // (metric "sqeuclidean", mutual, 0 < kappa < 1), and computes exactly what
 // `acoss_tpu_torch.ops.crp_cuda.fused_binary_crp_ref` computes.
 //
-// What bounds it on the H100: the TPU kernel keeps a whole (L, L) matrix per
-// pair in fast memory and searches it 31 times. At L = 512 that matrix is
-// 1 MB, which does not fit the 227 KB of shared memory a block can use, so
-// here the windowed (B, L, L) fp32 matrix goes through device memory
-// (64 MB for 64 pairs): the passes are bound by that traffic and by the
-// latency of the 31 dependent count-and-halve steps of every row and
-// column search.
+// What bounds it on the H100: the TPU kernel keeps a whole (L, L) windowed
+// matrix per pair in fast memory and searches its rows and columns there.
+// At L = 512 that matrix is 1 MB, more than the 227 KB of shared memory a
+// block has, so the windowed matrix W goes through device memory once:
+// written by the row pass, read once by the column pass (its valid cells,
+// ~2 x 34 MB at the Serra09 tile's B = 64, L = 512, plus the 16 MB CRP:
+// ~21 us at 3.35 TB/s, above the 8 us operations bound). Past that, what
+// costs time is the CSM's fp32 multiplies and adds, which must stay
+// unfused and in index order, and latency: each line's exact k-th
+// smallest is a chain of dependent count-and-halve steps.
 //
-// Design, three launches on one stream:
-//  1. window_kernel, one block per (pair, tile of kRowTile rows): the pair's
-//     Y block and the X rows the tile's windows reach are staged in shared
-//     memory, the CSM rows of the tile are built there, and the m-term
-//     diagonal sums are written out; +inf outside (l1e, l2e). No sqrt: the
-//     ranks of the squared sums equal those of the Euclidean ones. Every
-//     dot product and window sum is taken in index order with
-//     __fmul_rn/__fadd_rn (no FMA contraction), the order of the plain
-//     version, so the windowed matrix is bit-equal to it.
-//  2. threshold_kernel, one block per (pair, row or column): the exact k-th
-//     smallest of the line by a binary search over fp32 bit patterns
-//     (monotone for non-negative floats), 31 passes of a block-wide count,
-//     the search the TPU kernel runs. Ties at the k-th value are all kept.
-//  3. mask_kernel: S = (v <= t_row[i]) & (v <= t_col[j]), and an all-zero
-//     CRP for a pair whose rounded neighbour count is 0.
-// k = rint(kappa * length) rounds half to even, as jnp.round and
-// torch.round do.
+// Design, two launches on one stream:
+//  1. band_kernel, one block per (pair, band of `rb` rows; 16 at L = 512,
+//     so that four blocks share an SM): a thread keeps one column of Y in
+//     registers and builds that column of the band's rb + m - 1 CSM rows
+//     in shared memory, reading each X row as float4 broadcasts (Serra09's
+//     d = 12 and 13 are compiled in). Then each warp takes whole rows: a
+//     lane sums the m-term diagonal window of L/32 columns into registers
+//     (its keys), writes them to W, and the warp finds the row's threshold
+//     with the keys in registers (`warp_kth`: warp reductions, no block
+//     barrier). No sqrt: the ranks of the squared sums equal those of the
+//     Euclidean ones. Every dot product and window sum is taken in index
+//     order with __fmul_rn/__fadd_rn (no FMA contraction, no tensor
+//     cores), the order of the plain version, so W is bit-equal to it.
+//  2. strip_kernel, one block per (pair, strip of `cw` columns; 16 at
+//     L = 512): stages the strip's valid rows of W in shared memory as
+//     coalesced row segments, several loads in flight a thread (odd row
+//     stride, so a warp reading a column hits 32 banks), each warp finds
+//     its columns' thresholds with the keys in registers, and the block
+//     writes the strip of S = (v <= t_row[i]) & (v <= t_col[j]) from the
+//     staged values. Six blocks share an SM, so one block's loads overlap
+//     another's searches.
+// Cells outside (l1e, l2e) are +inf in the plain version; here they are
+// never computed, written or read (the keys stand in as 0xFFFFFFFF, above
+// every threshold), bands and strips wholly outside only write their
+// constants, and a pair whose rounded neighbour count is 0 gets an
+// all-zero CRP. k = rint(kappa * length) rounds half to even, as
+// jnp.round and torch.round do.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,172 +52,339 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowTile = 8;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kMaxFiniteBits = 0x7F7FFFFFu;
+constexpr unsigned kNoKey = 0xFFFFFFFFu;   // above every threshold
+constexpr int kMaxKeysPerLane = 192;        // lines of up to 6,144
+constexpr int kLoads = 8;    // loads in flight a thread in the strip kernel
+constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ int effective(int len, int m) {
-  return max(len - m + 1, 0);
+__device__ __forceinline__ int effective(int len, int L, int m) {
+  return max(min(len, L) - m + 1, 0);
 }
 
 __device__ __forceinline__ float round_k(float kappa, int len) {
   return rintf(__fmul_rn(kappa, (float)len));
 }
 
-__global__ void __launch_bounds__(kThreads)
-window_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-              const int* __restrict__ l1, const int* __restrict__ l2,
-              int L, int d, int m, float* __restrict__ W) {
-  extern __shared__ float sh[];
-  const int R = kRowTile + m - 1;        // CSM rows the windows reach
-  float* ys = sh;                        // (L, d)
-  float* sy = ys + L * d;                // (L,)
-  float* xs = sy + L;                    // (R, d)
-  float* sx = xs + R * d;                // (R,)
-  float* cs = sx + R;                    // (R, L) CSM rows i0 .. i0+R-1
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * kRowTile;
-  const float* Xb = X + (size_t)b * L * d;
-  const float* Yb = Y + (size_t)b * L * d;
-  const int l1e = effective(l1[b], m), l2e = effective(l2[b], m);
+// The exact k-th smallest (k >= 1) of a warp's keys (lane l holds keys
+// l, l + 32, ...; non-negative float bits, monotone as unsigned), clamped
+// to kMaxFiniteBits: the smallest t <= kMaxFiniteBits with
+// count(key <= t) >= k, else kMaxFiniteBits. Bisection between the
+// smallest key and a bound from the lanes' smallest keys; once a midpoint
+// has exactly k keys at or below it, the answer is the largest of those,
+// so the search stops there. Same value in every lane.
+template <int K>
+__device__ __forceinline__ unsigned warp_kth(const unsigned (&key)[K],
+                                             int k) {
+  // the two smallest keys of each lane: at least 32 (64) keys of the warp
+  // are <= the largest of the lanes' smallest (second smallest), so for
+  // k <= 32 (64) the answer is at most that
+  unsigned m1 = kNoKey, m2 = kNoKey;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    m2 = min(m2, max(m1, key[t]));
+    m1 = min(m1, key[t]);
+  }
+  unsigned lo = min(__reduce_min_sync(kFull, m1), kMaxFiniteBits);
+  unsigned hi = k <= 32   ? __reduce_max_sync(kFull, m1)
+                : k <= 64 ? __reduce_max_sync(kFull, m2)
+                          : kMaxFiniteBits;
+  hi = min(hi, kMaxFiniteBits);
+  while (lo < hi) {
+    const unsigned mid = lo + (hi - lo) / 2;
+    int cnt = 0;
+#pragma unroll
+    for (int t = 0; t < K; ++t) cnt += key[t] <= mid;
+    cnt = __reduce_add_sync(kFull, cnt);
+    if (cnt == k) {
+      unsigned best = 0;
+#pragma unroll
+      for (int t = 0; t < K; ++t)
+        if (key[t] <= mid) best = max(best, key[t]);
+      return __reduce_max_sync(kFull, best);
+    }
+    if (cnt > k) hi = mid; else lo = mid + 1;
+  }
+  return hi;
+}
 
-  for (int t = threadIdx.x; t < L * d; t += kThreads) ys[t] = Yb[t];
-  for (int t = threadIdx.x; t < R * d; t += kThreads) {
-    const int r = i0 + t / d;
-    xs[t] = r < L ? Xb[(size_t)i0 * d + t] : 0.0f;
+constexpr int kRegDims = 16;   // feature dims a thread keeps in registers
+// blocks of the band kernel an SM should hold (its searches are latency
+// bound); a taller band is taken only while this many still fit
+constexpr int kBandBlocksPerSm = 4;
+
+// X row stride in shared memory: whole float4s
+__host__ __device__ __forceinline__ int x_stride(int d) {
+  return (d + 3) & ~3;
+}
+
+size_t band_smem(int L, int d, int m, int rb) {
+  const size_t R = rb + m - 1;
+  return sizeof(float) * (R * x_stride(d) + R + R * L);
+}
+
+size_t strip_smem(int L, int cw) {
+  return sizeof(unsigned) * (size_t)L * (cw + 1);
+}
+
+// The tallest band of which kBandBlocksPerSm blocks fit an SM, else the
+// tallest that fits at all, and the widest strip that fits; 0 when none
+// does.
+int band_rows(int L, int d, int m) {
+  for (int rb = 32; rb >= 1; rb /= 2)
+    if (band_smem(L, d, m, rb) * kBandBlocksPerSm <= kMaxSmem) return rb;
+  for (int rb = 32; rb >= 1; rb /= 2)
+    if (band_smem(L, d, m, rb) <= kMaxSmem) return rb;
+  return 0;
+}
+
+int strip_cols(int L) {
+  for (int cw = 16; cw >= 8; cw /= 2)
+    if (strip_smem(L, cw) <= kMaxSmem) return cw;
+  return 0;
+}
+
+// grid (ceil(L / rb), B). Writes W's valid cells of the band's rows and
+// t_row of each of its rows. K: keys per lane, L <= 32 K.
+template <int K, int kD>
+__global__ void __launch_bounds__(kThreads)
+band_kernel(const float* __restrict__ X, const float* __restrict__ Y,
+            const int* __restrict__ l1, const int* __restrict__ l2, int L,
+            int d_, int m, int rb, float kappa, float* __restrict__ W,
+            unsigned* __restrict__ t_row) {
+  // kD > 0: the feature width, known when compiled (Serra09's 12 and 13)
+  const int d = kD > 0 ? kD : d_;
+  extern __shared__ float sh[];
+  const int dx = x_stride(d), R = rb + m - 1;
+  float* xs = sh;                 // (R, dx)
+  float* sx = xs + R * dx;        // (R,)
+  float* cs = sx + R;             // (R, L): CSM rows i0 .. i0 + R - 1
+  const int b = blockIdx.y, i0 = blockIdx.x * rb;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int l1e = effective(l1[b], L, m), l2e = effective(l2[b], L, m);
+  const int nr = l2e > 0 ? min(rb, l1e - i0) : 0;  // rows with keys
+  unsigned* tr = t_row + (size_t)b * L + i0;
+  // rows outside the valid block hold only +inf: no threshold selects it
+  for (int r = max(nr, 0) + threadIdx.x; r < rb && i0 + r < L;
+       r += kThreads)
+    tr[r] = kMaxFiniteBits;
+  if (nr <= 0) return;
+  const int nx = nr + m - 1;      // CSM rows the windows reach (< l1)
+  const int ny = l2e + m - 1;     // CSM columns they reach (== l2)
+  const float* Xb = X + ((size_t)b * L + i0) * d;
+  const float* Yb = Y + (size_t)b * L * d;
+  for (int t = threadIdx.x; t < nx * d; t += kThreads) {
+    const int r = t / d;
+    xs[r * dx + t - r * d] = Xb[t];
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < L; j += kThreads) {
-    const float* y = ys + j * d;
-    float s = __fmul_rn(y[0], y[0]);
-    for (int k = 1; k < d; ++k) s = __fadd_rn(s, __fmul_rn(y[k], y[k]));
-    sy[j] = s;
-  }
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const float* x = xs + r * d;
+  for (int r = threadIdx.x; r < nx; r += kThreads) {
+    const float* x = xs + r * dx;
     float s = __fmul_rn(x[0], x[0]);
     for (int k = 1; k < d; ++k) s = __fadd_rn(s, __fmul_rn(x[k], x[k]));
     sx[r] = s;
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < R * L; t += kThreads) {
-    const int r = t / L, j = t - r * L;
-    const float* x = xs + r * d;
-    const float* y = ys + j * d;
-    float xy = __fmul_rn(x[0], y[0]);
-    for (int k = 1; k < d; ++k) xy = __fadd_rn(xy, __fmul_rn(x[k], y[k]));
-    const float c = __fsub_rn(__fadd_rn(sx[r], sy[j]), __fmul_rn(2.0f, xy));
-    cs[t] = fmaxf(c, 0.0f);
+  // a thread builds column j of every CSM row of the band, with Y[j] in
+  // registers and each X row read as float4 broadcasts
+  for (int j = threadIdx.x; j < ny; j += kThreads) {
+    const float* yg = Yb + (size_t)j * d;
+    float y[kRegDims];
+#pragma unroll
+    for (int k = 0; k < kRegDims; ++k) y[k] = k < d ? __ldg(yg + k) : 0.0f;
+    float sy = __fmul_rn(y[0], y[0]);
+#pragma unroll
+    for (int k = 1; k < kRegDims; ++k)
+      if (k < d) sy = __fadd_rn(sy, __fmul_rn(y[k], y[k]));
+    for (int k = kRegDims; k < d; ++k)
+      sy = __fadd_rn(sy, __fmul_rn(__ldg(yg + k), __ldg(yg + k)));
+    for (int r = 0; r < nx; ++r) {
+      const float* x = xs + r * dx;
+      float xy = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kRegDims / 4; ++q) {
+        if (4 * q >= d) break;
+        const float4 v = reinterpret_cast<const float4*>(x)[q];
+        const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 4 * q + e;
+          if (k == 0) xy = __fmul_rn(xv[0], y[0]);
+          else if (k < d) xy = __fadd_rn(xy, __fmul_rn(xv[e], y[k]));
+        }
+      }
+      for (int k = kRegDims; k < d; ++k)
+        xy = __fadd_rn(xy, __fmul_rn(x[k], __ldg(yg + k)));
+      const float c = __fsub_rn(__fadd_rn(sx[r], sy), __fmul_rn(2.0f, xy));
+      cs[r * L + j] = fmaxf(c, 0.0f);
+    }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < kRowTile * L; t += kThreads) {
-    const int r = t / L, j = t - r * L, i = i0 + r;
-    if (i >= L) break;
-    float acc = INFINITY;
-    if (i < l1e && j < l2e) {
-      // i + k < l1 <= L and j + k < l2 <= L: the window stays in range
-      acc = cs[r * L + j];
-      for (int k = 1; k < m; ++k)
-        acc = __fadd_rn(acc, cs[(r + k) * L + j + k]);
+  // rows keep round(kappa * l2e) neighbours
+  const int k = (int)fmaxf(round_k(kappa, l2e), 1.0f);
+  for (int r = warp; r < nr; r += kWarps) {
+    float* Wr = W + ((size_t)b * L + i0 + r) * L;
+    unsigned key[K];
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      const int j = lane + 32 * t;
+      key[t] = kNoKey;
+      if (j < l2e) {
+        // i + k < l1 and j + k < l2: the window stays in the staged block
+        float acc = cs[r * L + j];
+        for (int q = 1; q < m; ++q)
+          acc = __fadd_rn(acc, cs[(r + q) * L + j + q]);
+        Wr[j] = acc;
+        key[t] = __float_as_uint(acc);
+      }
     }
-    W[((size_t)b * L + i) * L + j] = acc;
+    const unsigned t = warp_kth(key, k);
+    if (lane == 0) tr[r] = t;
   }
 }
 
-// grid (L, B, 2): blockIdx.z == 0 searches row blockIdx.x, 1 column.
+// grid (ceil(L / cw), B). Writes the strip's columns of S, every row.
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-threshold_kernel(const float* __restrict__ W, const int* __restrict__ l1,
-                 const int* __restrict__ l2, int L, int m, float kappa,
-                 unsigned* __restrict__ thr) {
-  extern __shared__ unsigned line[];
-  __shared__ int red[2][kThreads / 32];
-  const int b = blockIdx.y, col = blockIdx.z, q = blockIdx.x;
-  const int l1e = effective(l1[b], m), l2e = effective(l2[b], m);
-  unsigned* out = thr + ((size_t)b * 2 + col) * L + q;
-  // A line outside the valid block holds only +inf, which no threshold
-  // <= kMaxFiniteBits selects; the search would end there too.
-  if (q >= (col ? l2e : l1e)) {
-    if (threadIdx.x == 0) *out = kMaxFiniteBits;
+strip_kernel(const float* __restrict__ W, const unsigned* __restrict__ t_row,
+             const int* __restrict__ l1, const int* __restrict__ l2, int L,
+             int m, int cw, float kappa, uint8_t* __restrict__ S) {
+  extern __shared__ unsigned strip[];   // (L, cw + 1), rows < l1e
+  __shared__ unsigned t_col[32];
+  const int b = blockIdx.y, q0 = blockIdx.x * cw, cs = cw + 1;
+  const int cw_log2 = __ffs(cw) - 1;          // cw is a power of two
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int l1e = effective(l1[b], L, m), l2e = effective(l2[b], L, m);
+  const bool any = round_k(kappa, l2e) > 0.0f && round_k(kappa, l1e) > 0.0f;
+  const int cols = min(cw, L - q0);           // the strip's columns
+  const int vc = any ? min(cols, l2e - q0) : 0;  // those with keys
+  uint8_t* Sb = S + (size_t)b * L * L + q0;
+  if (vc <= 0) {
+    for (int t = threadIdx.x; t < L * cw; t += kThreads) {
+      const int i = t >> cw_log2, c = t & (cw - 1);
+      if (c < cols) Sb[(size_t)i * L + c] = 0;
+    }
     return;
   }
-  const float* Wb = W + (size_t)b * L * L;
-  for (int t = threadIdx.x; t < L; t += kThreads)
-    line[t] = __float_as_uint(col ? Wb[(size_t)t * L + q]
-                                  : Wb[(size_t)q * L + t]);
-  // rows keep round(kappa * l2e) neighbours, columns round(kappa * l1e)
-  const int k = (int)fmaxf(round_k(kappa, col ? l1e : l2e), 1.0f);
-  __syncthreads();
-  unsigned lo = 0, hi = kMaxFiniteBits;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int it = 0; it < 31; ++it) {
-    const unsigned mid = lo + (hi - lo) / 2;
-    int cnt = 0;
-    for (int t = threadIdx.x; t < L; t += kThreads) cnt += line[t] <= mid;
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    if (lane == 0) red[it & 1][warp] = cnt;
-    __syncthreads();
-    int total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) total += red[it & 1][w];
-    if (total >= k) hi = mid; else lo = mid + 1;
+  const float* Wb = W + (size_t)b * L * L + q0;
+  // coalesced row segments, kLoads of them in flight a thread
+  for (int t0 = threadIdx.x; t0 < l1e * cw; t0 += kLoads * kThreads) {
+    float v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int t = t0 + u * kThreads, i = t >> cw_log2, c = t & (cw - 1);
+      v[u] = t < l1e * cw && c < vc ? __ldg(Wb + (size_t)i * L + c) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int t = t0 + u * kThreads, i = t >> cw_log2, c = t & (cw - 1);
+      if (t < l1e * cw && c < vc) strip[i * cs + c] = __float_as_uint(v[u]);
+    }
   }
-  if (threadIdx.x == 0) *out = hi;
+  __syncthreads();
+  // columns keep round(kappa * l1e) neighbours
+  const int k = (int)fmaxf(round_k(kappa, l1e), 1.0f);
+  for (int c = warp; c < vc; c += kWarps) {
+    unsigned key[K];
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      const int i = lane + 32 * t;
+      key[t] = i < l1e ? strip[i * cs + c] : kNoKey;
+    }
+    const unsigned t = warp_kth(key, k);
+    if (lane == 0) t_col[c] = t;
+  }
+  __syncthreads();
+  const unsigned* tr = t_row + (size_t)b * L;
+  for (int t = threadIdx.x; t < L * cw; t += kThreads) {
+    const int i = t >> cw_log2, c = t & (cw - 1);
+    if (c >= cols) continue;
+    bool s = false;
+    if (i < l1e && c < vc) {
+      const unsigned v = strip[i * cs + c];
+      s = v <= tr[i] && v <= t_col[c];
+    }
+    Sb[(size_t)i * L + c] = (uint8_t)s;
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-mask_kernel(const float* __restrict__ W, const unsigned* __restrict__ thr,
-            const int* __restrict__ l1, const int* __restrict__ l2, int L,
-            int m, float kappa, uint8_t* __restrict__ S) {
-  const int b = blockIdx.y, i = blockIdx.x;
-  const int l1e = effective(l1[b], m), l2e = effective(l2[b], m);
-  const bool any = round_k(kappa, l2e) > 0.0f && round_k(kappa, l1e) > 0.0f;
-  const unsigned* tr = thr + (size_t)b * 2 * L;
-  const unsigned* tc = tr + L;
-  const unsigned ti = tr[i];
-  const float* Wr = W + ((size_t)b * L + i) * L;
-  uint8_t* Sr = S + ((size_t)b * L + i) * L;
-  for (int j = threadIdx.x; j < L; j += kThreads) {
-    const unsigned v = __float_as_uint(Wr[j]);
-    Sr[j] = (uint8_t)(any && v <= ti && v <= tc[j]);
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int K, int kD>
+int launch(const float* X, const float* Y, const int* l1, const int* l2,
+           int B, int L, int d, int m, float kappa, float* W,
+           unsigned* t_row, uint8_t* S, cudaStream_t stream) {
+  const int rb = band_rows(L, d, m), cw = strip_cols(L);
+  const size_t bsm = band_smem(L, d, m, rb), ssm = strip_smem(L, cw);
+  cudaError_t err = allow_smem(band_kernel<K, kD>, bsm);
+  if (err == cudaSuccess) err = allow_smem(strip_kernel<K>, ssm);
+  if (err != cudaSuccess) return (int)err;
+  band_kernel<K, kD><<<dim3((L + rb - 1) / rb, B), kThreads, bsm,
+                       stream>>>(X, Y, l1, l2, L, d, m, rb, kappa, W, t_row);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  strip_kernel<K><<<dim3((L + cw - 1) / cw, B), kThreads, ssm, stream>>>(
+      W, t_row, l1, l2, L, m, cw, kappa, S);
+  return (int)cudaGetLastError();
+}
+
+// Serra09's widths (chroma 12, mfcc 13) compiled in, up to L = 1,024
+template <int K>
+int launch_k(const float* X, const float* Y, const int* l1, const int* l2,
+             int B, int L, int d, int m, float kappa, float* W,
+             unsigned* t_row, uint8_t* S, cudaStream_t stream) {
+  if constexpr (K <= 32) {
+    if (d == 12)
+      return launch<K, 12>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S,
+                           stream);
+    if (d == 13)
+      return launch<K, 13>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S,
+                           stream);
   }
+  return launch<K, 0>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory window_kernel needs for one block; 0 if L, d or m is
-// out of range.
+// The larger of the two kernels' shared memory per block at the band
+// height and strip width they would take; 0 if L, d or m is out of range
+// or no band or strip fits.
 size_t acoss_fused_crp_smem(int L, int d, int m) {
-  if (L <= 0 || d <= 0 || m <= 0) return 0;
-  const size_t R = kRowTile + m - 1;
-  return sizeof(float) * ((size_t)L * d + L + R * d + R + R * L);
+  if (L <= 0 || d <= 0 || m <= 0 || L > 32 * kMaxKeysPerLane) return 0;
+  const int rb = band_rows(L, d, m), cw = strip_cols(L);
+  if (rb == 0 || cw == 0) return 0;
+  const size_t a = band_smem(L, d, m, rb), s = strip_smem(L, cw);
+  return a > s ? a : s;
 }
 
 int acoss_fused_crp(const float* X, const float* Y, const int* l1,
                     const int* l2, int B, int L, int d, int m, float kappa,
-                    float* W, unsigned* thr, uint8_t* S, int device,
+                    float* W, unsigned* t_row, uint8_t* S, int device,
                     void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (acoss_fused_crp_smem(L, d, m) == 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
-  const size_t smem = acoss_fused_crp_smem(L, d, m);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  window_kernel<<<dim3((L + kRowTile - 1) / kRowTile, B), kThreads, smem,
-                  stream>>>(X, Y, l1, l2, L, d, m, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  threshold_kernel<<<dim3(L, B, 2), kThreads, L * sizeof(unsigned),
-                     stream>>>(W, l1, l2, L, m, kappa, thr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mask_kernel<<<dim3(L, B), kThreads, 0, stream>>>(W, thr, l1, l2, L, m,
-                                                   kappa, S);
-  return (int)cudaGetLastError();
+  // keys per lane: the first that covers a line of L (16 up to L = 512)
+  const int kpl = (L + 31) / 32;
+  if (kpl <= 16)
+    return launch_k<16>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, stream);
+  if (kpl <= 32)
+    return launch_k<32>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, stream);
+  if (kpl <= 64)
+    return launch_k<64>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, stream);
+  return launch_k<kMaxKeysPerLane>(X, Y, l1, l2, B, L, d, m, kappa, W,
+                                   t_row, S, stream);
 }
 
 }  // extern "C"

@@ -97,7 +97,7 @@ SIGNATURES = {
     **{name: (_ALIGNER[0] + [_F] * n_params + _ALIGNER[1], _I)
        for name, n_params in (("acoss_qmax", 1), ("acoss_dmax", 1),
                               ("acoss_qmax_uneq", 2), ("acoss_sw", 4))},
-    # X, Y, l1, l2, B, L, d, m, kappa, W, thr, S, device, stream
+    # X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, device, stream
     "acoss_fused_crp": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
                          _I, _P], _I),
     "acoss_fused_crp_smem": ([_I, _I, _I], ctypes.c_size_t),

@@ -51,7 +51,7 @@ def swconstrained_batch_ref(S, m_len, n_len, gap_opening: float = -0.5,
         mismatch_score=mismatch_score)
 
 
-def _check_args(S, m_len, n_len, rows: int) -> None:
+def _check_args(S, m_len, n_len, max_n: int) -> None:
     if S.device.type != "cuda":
         raise ValueError(f"expected a CUDA or CPU tensor, got {S.device}")
     if S.dtype != torch.uint8 or S.ndim != 3 or not S.is_contiguous():
@@ -64,15 +64,21 @@ def _check_args(S, m_len, n_len, rows: int) -> None:
             raise ValueError(f"{name} must be a contiguous ({B},) int32 "
                              f"tensor on {S.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if rows * N * 4 > _build.MAX_SMEM:
-        raise ValueError(f"N={N} needs {rows * N * 4} bytes of shared "
-                         f"memory per block (max {_build.MAX_SMEM})")
+    if N > max_n:
+        raise ValueError(f"the kernel takes N <= {max_n}, got N={N}")
 
 
-def _launch(entry: str, rows: int, S, m_len, n_len, *params: float):
-    """Launch the C entry point `entry` (one block per pair with `rows`
-    D rows of shared memory) with the float `params` after the shape."""
-    _check_args(S, m_len, n_len, rows)
+#: The longest rows each kernel takes: qmax, unequal-gap qmax and SW keep
+#: three D rows of fp32 in a block's shared memory; dmax keeps its D rows
+#: in registers, at most 32 columns a thread and 512 threads a pair.
+SMEM_MAX_N = _build.MAX_SMEM // (4 * 3)
+DMAX_MAX_N = 32 * 512
+
+
+def _launch(entry: str, max_n: int, S, m_len, n_len, *params: float):
+    """Launch the C entry point `entry` (one block per pair, rows up to
+    `max_n` long) with the float `params` after the shape."""
+    _check_args(S, m_len, n_len, max_n)
     B, M, N = S.shape
     out = torch.empty(B, dtype=torch.float32, device=S.device)
     rc = getattr(_build.library(), entry)(
@@ -89,7 +95,7 @@ def qmax_batch_cuda(S: torch.Tensor, m_len: torch.Tensor,
     uint8, m_len/n_len (B,) int32 -> (B,) float32 scores."""
     if S.device.type == "cpu":
         return qmax_batch_ref(S, m_len, n_len, gap)
-    out = _launch("acoss_qmax", 3, S, m_len, n_len, gap)
+    out = _launch("acoss_qmax", SMEM_MAX_N, S, m_len, n_len, gap)
     qmax_batch_cuda.launches += 1
     return out
 
@@ -100,7 +106,7 @@ def dmax_batch_cuda(S: torch.Tensor, m_len: torch.Tensor,
     as `qmax_batch_cuda`)."""
     if S.device.type == "cpu":
         return dmax_batch_ref(S, m_len, n_len, gap)
-    out = _launch("acoss_dmax", 4, S, m_len, n_len, gap)
+    out = _launch("acoss_dmax", DMAX_MAX_N, S, m_len, n_len, gap)
     dmax_batch_cuda.launches += 1
     return out
 
@@ -114,7 +120,7 @@ def qmax_uneq_batch_cuda(S: torch.Tensor, m_len: torch.Tensor,
     if S.device.type == "cpu":
         return qmax_uneq_batch_ref(S, m_len, n_len, gap_onset,
                                    gap_extension)
-    out = _launch("acoss_qmax_uneq", 3, S, m_len, n_len, gap_onset,
+    out = _launch("acoss_qmax_uneq", SMEM_MAX_N, S, m_len, n_len, gap_onset,
                   gap_extension)
     qmax_uneq_batch_cuda.launches += 1
     return out
@@ -131,7 +137,7 @@ def swconstrained_batch_cuda(S: torch.Tensor, m_len: torch.Tensor,
         return swconstrained_batch_ref(S, m_len, n_len, gap_opening,
                                        gap_extension, match_score,
                                        mismatch_score)
-    out = _launch("acoss_sw", 3, S, m_len, n_len, gap_opening,
+    out = _launch("acoss_sw", SMEM_MAX_N, S, m_len, n_len, gap_opening,
                   gap_extension, match_score, mismatch_score)
     swconstrained_batch_cuda.launches += 1
     return out

@@ -117,10 +117,13 @@ def _check_args(X, Y, l1, l2, m: int) -> None:
     B, L, d = X.shape
     if m < 1 or B > 65535:
         raise ValueError(f"need m >= 1 and B <= 65535 (got m={m}, B={B})")
+    # 0: no band of rows or strip of columns fits a block's shared memory,
+    # or a line is longer than the kernels' keys in registers cover
     smem = _build.library().acoss_fused_crp_smem(L, d, m)
-    if smem > _build.MAX_SMEM or L * 4 > 48 * 1024:
-        raise ValueError(f"L={L}, d={d}, m={m} needs {smem} bytes of "
-                         f"shared memory per block (max {_build.MAX_SMEM})")
+    if smem == 0 or smem > _build.MAX_SMEM:
+        raise ValueError(f"the fused CRP kernels cannot take L={L}, d={d}, "
+                         f"m={m} (shared memory per block max "
+                         f"{_build.MAX_SMEM} bytes, lines up to 6144)")
 
 
 def fused_binary_crp_batch(X: torch.Tensor, Y: torch.Tensor,
@@ -137,12 +140,14 @@ def fused_binary_crp_batch(X: torch.Tensor, Y: torch.Tensor,
     _check_args(X, Y, l1, l2, m)
     B, L, d = X.shape
     dev = X.device
+    # scratch: the windowed matrix (only its valid cells are written) and
+    # the row thresholds
     W = torch.empty((B, L, L), dtype=torch.float32, device=dev)
-    thr = torch.empty((B, 2, L), dtype=torch.int32, device=dev)
+    t_row = torch.empty((B, L), dtype=torch.int32, device=dev)
     S = torch.empty((B, L, L), dtype=torch.uint8, device=dev)
     rc = _build.library().acoss_fused_crp(
         X.data_ptr(), Y.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, L, d,
-        m, kappa, W.data_ptr(), thr.data_ptr(), S.data_ptr(), dev.index,
+        m, kappa, W.data_ptr(), t_row.data_ptr(), S.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "acoss_fused_crp")
     fused_binary_crp_batch.launches += 1

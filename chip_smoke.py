@@ -5,7 +5,8 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 `acoss_tpu_torch/csrc`, checks each kernel against its plain PyTorch
 version on the card at the main paths' shapes (bit for bit, and the fused
-WCSMSSM build within rtol 2e-5 / atol 2e-6), checks the four aligner
+WCSMSSM build within rtol 2e-5 / atol 2e-6; the fused CRP also on a
+tie-heavy batch and on odd lengths), checks the four aligner
 kernels bit for bit against the port's native C++ aligners (`native.py`),
 then drives the paths over a covers80-geometry synthetic corpus (160
 songs, 210 tiles, 12,720 pairs):
@@ -325,6 +326,39 @@ def _descriptors(dev, fs) -> dict:
     return desc
 
 
+def _ties_at_kth(X, Y, l1, l2, m: int = 9) -> int:
+    """Rows of the pairs' windowed CSMs, summed in float64, whose k-th
+    smallest value occurs more than once."""
+    n = 0
+    for b in range(X.shape[0]):
+        l1e, l2e = max(int(l1[b]) - m + 1, 0), max(int(l2[b]) - m + 1, 0)
+        k = int(round(KAPPA * l2e))
+        if l1e == 0 or k == 0:
+            continue
+        x, y = X[b].double(), Y[b].double()
+        D = ((x[:, None] - y[None]) ** 2).sum(-1)
+        W = sum(D[q:q + l1e, q:q + l2e] for q in range(m))
+        kth = torch.sort(W, dim=1).values[:, k - 1:k]
+        n += int(((W == kth).sum(1) > 1).sum())
+    return n
+
+
+def _check_fused(what: str, X, Y, l1, l2):
+    """The fused CRP kernel == its plain version bit for bit; returns the
+    kernel's output."""
+    from acoss_tpu_torch.ops import crp_cuda
+
+    got = crp_cuda.fused_binary_crp_batch(X, Y, l1, l2, KAPPA, 9)
+    want = crp_cuda.fused_binary_crp_ref(X, Y, l1, l2, KAPPA, 9)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"fused CRP kernel != plain ({what}, "
+                                 f"d={X.shape[2]}): "
+                                 f"{int((g != w).sum())} cells differ")
+    return got
+
+
 def phase_fused_crp(desc: dict) -> dict:
     from acoss_tpu_torch.benchmarking.algorithms import Serra09
     from acoss_tpu_torch.ops import crp_cuda
@@ -340,18 +374,30 @@ def phase_fused_crp(desc: dict) -> dict:
 
     # the exact (B=64, L=512, d=12 / 13) inputs a tile hands the kernel
     algo._tile_crps_fused(row, col, capture)
+    # a tie-heavy batch (the chroma features on a grid of 1/4, so that
+    # many windowed sums tie at the k-th value) and lengths that are not
+    # multiples of 32, from the d = 12 input
+    X, Y, l1, l2 = inputs[0]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    ragged = torch.randint(40, L + 1, (2, X.shape[0]), generator=g)
+    ragged = (ragged | 1).clamp_max(L - 1).to(torch.int32).to(X.device)
+    Xq, Yq = torch.round(X * 4) / 4, torch.round(Y * 4) / 4
+    ties = _ties_at_kth(Xq[:8], Yq[:8], l1[:8], l2[:8])
+    if ties == 0:
+        raise AssertionError("fused CRP: the tie-heavy batch has no ties")
+    _check_fused("ties", Xq, Yq, l1, l2)
+    _check_fused("ragged lengths", X, Y, ragged[0].contiguous(),
+                 ragged[1].contiguous())
+    _phase("fused_crp", f"kernel == plain bit for bit on a tie-heavy "
+           f"batch ({ties} rows of its first 8 pairs tie at their k-th "
+           f"value) and on odd lengths {int(ragged.min())}.."
+           f"{int(ragged.max())}")
     worst, times, bounds = 0, [], []
     for X, Y, l1, l2 in inputs:
         # pairs whose rounded k is 0 (l1e = 4, l2e = 1) and a zero length
         l1[0], l2[1], l1[2] = 12, 9, 0
-        got = crp_cuda.fused_binary_crp_batch(X, Y, l1, l2, KAPPA, 9)
+        got = _check_fused("tile", X, Y, l1, l2)
         want = crp_cuda.fused_binary_crp_ref(X, Y, l1, l2, KAPPA, 9)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            if not torch.equal(g, w):
-                raise AssertionError(
-                    f"fused CRP kernel != plain (d={X.shape[2]}): "
-                    f"{int((g != w).sum())} cells differ")
         if int(got[0][:3].sum()) != 0 or int(got[0][3:].sum()) == 0:
             raise AssertionError("fused CRP: implausible CRPs")
         worst = max(worst, int((got[0].int() - want[0].int()).abs().max()))
@@ -369,9 +415,14 @@ def phase_fused_crp(desc: dict) -> dict:
             4 * d * float((l1.clamp(0, L) + l2.clamp(0, L)).sum())
             + B * L * L + 16 * B,
             (2 * d + 3) * _cells(l1, l2, L) + 12 * _cells(l1e, l2e, L)))
+        # the design's own floor: the windowed matrix's valid cells written
+        # and read once, S written
+        floor_ms = 1e3 * (8 * _cells(l1e, l2e, L) + B * L * L) \
+            / HBM_BYTES_PER_S
         _phase("fused_crp", f"kernel == plain bit for bit, B={X.shape[0]} "
                f"L={X.shape[1]} d={X.shape[2]}: kernel {ms:.3f} ms, "
-               f"plain {plain_ms:.3f} ms")
+               f"plain {plain_ms:.3f} ms, bound {bounds[-1][0]:.4f} ms "
+               f"({bounds[-1][1]}), design floor {floor_ms:.4f} ms")
     return _kernel("fused_crp", "crp.cu", "acoss_tpu/ops/crp_pallas.py:57",
                    worst, np.mean([t[0] for t in times]),
                    np.mean([t[1] for t in times]),

@@ -1,18 +1,22 @@
-"""Profile one warm tile of each SNF-slice path and of EarlyFusion in the
-PyTorch/CUDA port.
+"""Profile one warm tile of each path of the PyTorch/CUDA port, and time
+whole sweeps.
 
     python3 scripts/torch_tile_profile.py [--trace-dir DIR] [--reps 7]
-        [--paths early_snf,early_snf_fast,serra09_full,early_fusion]
+        [--paths serra09,early_snf,early_snf_fast,serra09_full,early_fusion]
+        [--sweeps N]
 
 Run from the root of a checkout on a machine with a CUDA device. It builds
 the covers80-geometry corpus of `chip_smoke.py` (160 songs), extracts the
-descriptors the chosen paths need (EarlySNF's on the card, L = 512;
-EarlyFusion's on the host, L = 576), and for tile (1, 0) (8 x 8 pairs) of
-EarlySNF (parity), EarlySNF (throughput), Serra09(do_ssms=True) and
-EarlyFusion prints the median wall of `--reps` warm tiles, one
-`torch.profiler` tile's device time by kernel and its idle share
-(1 - summed kernel time / profiled wall), and the peak device memory.
-With --trace-dir it also writes one Chrome trace per path there.
+descriptors the chosen paths need (Serra09's and EarlySNF's on the card,
+L = 512; EarlyFusion's on the host, L = 576), and for tile (1, 0) (8 x 8
+pairs) of Serra09 (the main path, defaults), EarlySNF (parity), EarlySNF
+(throughput), Serra09(do_ssms=True) and EarlyFusion prints the median
+wall of `--reps` warm tiles, one `torch.profiler` tile's device time by
+kernel and its idle share (1 - summed kernel time / profiled wall), and
+the peak device memory. With --sweeps N it also times N whole
+`run_pairwise` sweeps of each path over the corpus (12,720 pairs) and
+prints the median, min and max fully-scored pairs/s. With --trace-dir it
+also writes one Chrome trace per path there.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke  # noqa: E402
 from acoss_tpu_torch.benchmarking.algorithms import (  # noqa: E402
     EarlyFusion, EarlySNF, Serra09)
+from acoss_tpu_torch.benchmarking.harness import run_pairwise  # noqa: E402
 from acoss_tpu_torch.convert import descriptors_from_numpy  # noqa: E402
 
 
-PATHS = {"early_snf": EarlySNF,
+PATHS = {"serra09": Serra09,
+         "early_snf": EarlySNF,
          "early_snf_fast": lambda: EarlySNF(snf_precision="default"),
          "serra09_full": lambda: Serra09(do_ssms=True),
          "early_fusion": EarlyFusion}
@@ -50,12 +56,31 @@ def _kernel_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
+def _sweeps(name: str, algo, desc: dict, fs, n: int) -> None:
+    """Time `n` whole sweeps of `algo` over the corpus (after one warm-up
+    sweep) and print the median, min and max fully-scored pairs/s."""
+    pairs = fs.n_songs * (fs.n_songs - 1) // 2
+    rates = []
+    for rep in range(n + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_pairwise(algo, desc, fs.n_songs, device="cuda")
+        torch.cuda.synchronize()
+        if rep:
+            rates.append(pairs / (time.perf_counter() - t))
+    rates.sort()
+    print(f"== {name}: {n} sweeps of {pairs} pairs: median "
+          f"{rates[len(rates) // 2]:.1f} fully-scored pairs/s (min "
+          f"{rates[0]:.1f}, max {rates[-1]:.1f})", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--top", type=int, default=22)
     ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--sweeps", type=int, default=0)
     args = ap.parse_args()
     paths = args.paths.split(",")
     if not torch.cuda.is_available():
@@ -67,7 +92,8 @@ def main() -> int:
     for name in paths:
         algo = PATHS[name]()
         # the three SNF-slice paths share EarlySNF's descriptors
-        key = EarlyFusion if name == "early_fusion" else EarlySNF
+        key = {"serra09": Serra09,
+               "early_fusion": EarlyFusion}.get(name, EarlySNF)
         if key not in descs:
             t0 = time.perf_counter()
             descs[key] = descriptors_from_numpy(
@@ -102,8 +128,10 @@ def main() -> int:
               f"wall {wall:.2f} ms, kernels {dev_ms:.2f} ms, idle "
               f"{100 * (1 - dev_ms / wall):.1f}%; peak {peak:.2f} GiB",
               flush=True)
-        for ms, n, key in rows[:args.top]:
-            print(f"  {ms:9.3f} ms {n:5d}  {key[:90]}")
+        for ms, n, kernel in rows[:args.top]:
+            print(f"  {ms:9.3f} ms {n:5d}  {kernel[:90]}")
+        if args.sweeps:
+            _sweeps(name, algo, descs[key], fs, args.sweeps)
         if args.trace_dir:
             os.makedirs(args.trace_dir, exist_ok=True)
             prof.export_chrome_trace(

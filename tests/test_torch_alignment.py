@@ -60,6 +60,28 @@ def test_kernel_ref_matches_pallas_interpret(name, seed):
     np.testing.assert_array_equal(_port(ref, S, ml, nl, gap=0.5), want)
 
 
+# at L = 72 a row is not a whole number of the dmax kernel's 4-column
+# runs of 32 lanes (and 72 % 16 != 0 moves its copies' alignment)
+@pytest.mark.parametrize("name", ["qmax", "dmax"])
+@pytest.mark.parametrize("density", [0.095, 0.3])
+def test_kernel_ref_matches_pallas_interpret_l72(name, density):
+    sizes = [(72, 72), (71, 37), (3, 72), (4, 4), (0, 9), (72, 65)]
+    rng = np.random.default_rng(int(density * 1000))
+    S = np.zeros((len(sizes), 72, 72), np.uint8)
+    for b, (m, n) in enumerate(sizes):
+        S[b, :m, :n] = rng.random((m, n)) < density
+    S[0, :2] = 1
+    ml = np.array([z[0] for z in sizes], np.int32)
+    nl = np.array([z[1] for z in sizes], np.int32)
+    pallas = getattr(alignment_pallas, f"{name}_batch_pallas")
+    want = np.asarray(pallas(S, ml, nl, gap=0.5, block_b=8, block_t=8,
+                             interpret=True))
+    ref = getattr(alignment_cuda, f"{name}_batch_ref")
+    got = _port(ref, S, ml, nl, gap=0.5)
+    np.testing.assert_array_equal(got, want)
+    assert got[0] > 0 and got[4] == 0
+
+
 @pytest.mark.parametrize("name", ["qmax", "dmax"])
 @pytest.mark.parametrize("gaps", [(0.5, 0.5), (0.3, 0.7), (1.0, 0.25),
                                   (-0.2, -0.2)])

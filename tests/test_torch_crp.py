@@ -48,6 +48,42 @@ def test_fused_ref_matches_pallas_interpret(m, d, B):
     assert got[0].sum() > 0
 
 
+def _ties_at_kth(X, Y, l1, l2, kappa, m):
+    """Rows of the pairs' windowed CSMs (exact in float64 for features on
+    an integer grid) whose k-th smallest value occurs more than once."""
+    n = 0
+    for b in range(X.shape[0]):
+        l1e, l2e = max(l1[b] - m + 1, 0), max(l2[b] - m + 1, 0)
+        k = int(np.round(kappa * l2e))
+        if l1e == 0 or k == 0:
+            continue
+        x, y = X[b].astype(np.float64), Y[b].astype(np.float64)
+        D = ((x[:, None] - y[None]) ** 2).sum(-1)
+        W = sum(D[q:q + l1e, q:q + l2e] for q in range(m))
+        kth = np.sort(W, axis=1)[:, k - 1]
+        n += int(((W == kth[:, None]).sum(1) > 1).sum())
+    return n
+
+
+# at L = 72 a kernel lane holds three keys of a line and a band or strip
+# is cut short; the tie-heavy input puts the features on an integer grid,
+# so that many windowed sums tie at the k-th value (ties are all kept)
+@pytest.mark.parametrize("d", [12, 13])
+@pytest.mark.parametrize("ties", [False, True])
+def test_fused_ref_matches_pallas_interpret_l72(d, ties):
+    X, Y, l1, l2 = _features(20 + d + 2 * ties, 6, 72, d)
+    l1[:3], l2[:3] = [72, 41, 67], [72, 72, 37]
+    if ties:
+        X, Y = np.round(X), np.round(Y)
+        assert _ties_at_kth(X, Y, l1, l2, 0.095, 9) > 0
+    want = [np.asarray(a) for a in jax_fused(
+        X, Y, l1, l2, kappa=0.095, m=9, interpret=True)]
+    got = _port_fused(crp_cuda.fused_binary_crp_ref, X, Y, l1, l2, 0.095, 9)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert got[0].sum() > 0
+
+
 def test_fused_ref_degenerate_pairs():
     """An odd batch with a zero-length pair and pairs whose rounded k is 0
     (l2e = 5 -> round(0.095 * 5) = 0): all-zero CRPs, as in the JAX

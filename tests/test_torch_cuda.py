@@ -52,11 +52,14 @@ ALIGNERS = {
 }
 
 
-@pytest.mark.parametrize("L", [512, 576])
+@pytest.mark.parametrize("L", [100, 512, 576, 1024])
 @pytest.mark.parametrize("name", list(ALIGNERS))
 def test_aligner_kernel_bit_equal_to_plain(dev, name, L):
-    """At the Serra09 (512) and EarlyFusion (576) widths, with degenerate
-    pairs and a pair whose rows 0 and 1 are all matches."""
+    """At the Serra09 (512) and EarlyFusion (576) widths, at 100 (a row
+    that is not a whole number of dmax's 16-byte copies or 4-column runs
+    of a warp) and 1024 (chunks of CRP rows that wrap the stage ring more
+    often), with degenerate pairs and a pair whose rows 0 and 1 are all
+    matches."""
     S, m, n = (torch.from_numpy(a).to(dev) for a in _crps(0, L=L))
     S[5, :2, :n[5]] = 1
     wname, rname, kw = ALIGNERS[name]
@@ -70,15 +73,24 @@ def test_aligner_kernel_bit_equal_to_plain(dev, name, L):
     assert float(got[5:].min()) > 0
 
 
+@pytest.mark.parametrize("L,ties", [(100, False), (512, False),
+                                    (1024, False), (512, True)])
 @pytest.mark.parametrize("d", [12, 13])
-def test_fused_crp_kernel_bit_equal_to_plain(dev, d):
-    rng = np.random.default_rng(d)
-    B, L = 8, 512
-    l1 = rng.integers(320, L + 1, B).astype(np.int32)
-    l2 = rng.integers(320, L + 1, B).astype(np.int32)
+def test_fused_crp_kernel_bit_equal_to_plain(dev, d, L, ties):
+    """Lengths that are not multiples of 32 (a lane's last keys and a
+    strip cut short), 1024 (32 keys a lane), and a tie-heavy input:
+    features on an integer grid, so that many windowed sums tie at the
+    k-th value."""
+    rng = np.random.default_rng(d + L + ties)
+    B = 8
+    l1 = rng.integers(L * 5 // 8, L + 1, B).astype(np.int32)
+    l2 = rng.integers(L * 5 // 8, L + 1, B).astype(np.int32)
     l1[:2] = [0, 12]          # zero length; round(0.095 * 4) == 0
+    l1[2], l2[2] = L - 1, L - 7
     X = rng.standard_normal((B, L, d)).astype(np.float32)
     Y = rng.standard_normal((B, L, d)).astype(np.float32)
+    if ties:
+        X, Y = np.round(X), np.round(Y)
     args = [torch.from_numpy(a).to(dev) for a in (X, Y, l1, l2)]
     got = crp_cuda.fused_binary_crp_batch(*args, kappa=0.095, m=9)
     want = crp_cuda.fused_binary_crp_ref(*args, kappa=0.095, m=9)
