@@ -16,27 +16,29 @@
 // times M is. A row step that waits for its CRP row to come from device
 // memory, or for every thread of a large block, takes ~0.5 us.
 //
-// dmax (the Serra09 main path's): one block per pair, each thread owning a
-// run of kCols consecutive columns (128 threads x 4 at N = 512). The D rows
-// i-1..i-3 of the run and the S rows i-1, i-2 that dmax adds live in
-// registers; the values left of the run (D row i-1 at j0-3..j0-1, rows i-2
-// and i-3 at j0-1) come from the next lane down by __shfl_up_sync, and
-// across a warp boundary through a double-buffered shared slot, so a row
-// step has one barrier of four warps and no shared-memory D traffic. The
-// CRP arrives ahead of the recurrence: thread 0 keeps kStages chunks of up
-// to 16 rows in flight as TMA bulk copies (cp.async.bulk) into a ring of
+// qmax and dmax (the Serra09 main path's): one block per pair, each thread
+// owning a run of kCols consecutive columns (128 threads x 4 at N = 512).
+// The D rows the cell reads (i-1, i-2; dmax also i-3 and the S rows i-1,
+// i-2 it adds) live in registers; the values left of the run (D row i-1 at
+// j0-2..j0-1 and row i-2 at j0-1; dmax one more of each) come from the
+// next lane down by __shfl_up_sync, and across a warp boundary through a
+// shared slot, so a row step has no shared-memory D traffic. The CRP
+// arrives ahead of the recurrence: thread 0 keeps kStages chunks of up to
+// 16 rows in flight as TMA bulk copies (cp.async.bulk) into a ring of
 // shared-memory stages, each completing on its own mbarrier, so the
 // threads wait once a chunk, never on device memory, and read each row
-// as one 32-bit word of 4 columns. What is left is the row step itself
-// (its barrier, the exchange and the byte conversions take about twice
-// the time of its 13 operations a cell), one SM a pair.
+// as one 32-bit word of 4 columns. dmax converts its bytes to floats
+// (it adds them); qmax only tests them for a match, in the word. What is
+// left is the row step itself, closed by one block barrier (four warps at
+// N = 512), one SM a pair. (Handing the slots from warp to warp through an
+// mbarrier each way, so that warps may run a row apart, measured slower:
+// the waits and arrivals cost more than the barrier.)
 //
-// qmax, unequal-gap qmax and SW: one block per pair, threads striding over
-// the N columns; the previous D rows live in shared memory as a ring, a
-// row step reads its CRP bytes (and the predecessors' S that set the
-// unequal-gap and SW penalties) through the L1 cache, and one
-// __syncthreads() per row separates writing row i from reading it as row
-// i-1.
+// unequal-gap qmax and SW: one block per pair, threads striding over the
+// N columns; the previous D rows live in shared memory as a ring, a row
+// step reads its CRP bytes and the predecessors' S that set the gap
+// penalties through the L1 cache, and one __syncthreads() per row
+// separates writing row i from reading it as row i-1.
 //
 // In all four, cells outside (m_len, n_len) are never computed (they stay
 // 0), so the kernels need no zero-padding argument and no guard on the
@@ -73,45 +75,10 @@ __device__ float block_max(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-qmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
-            const int* __restrict__ n_len, int M, int N, float gap,
-            float* __restrict__ out) {
-  extern __shared__ float sh[];
-  float* d0 = sh;          // D row i (being written)
-  float* d1 = sh + N;      // D row i-1
-  float* d2 = sh + 2 * N;  // D row i-2
-  const int b = blockIdx.x;
-  const int m = min(m_len[b], M), n = min(n_len[b], N);
-  for (int j = threadIdx.x; j < 3 * N; j += kThreads) sh[j] = 0.0f;
-  __syncthreads();
-  const uint8_t* Sb = S + (size_t)b * M * N;
-  float best = 0.0f;
-  for (int i = 2; i < m; ++i) {
-    const uint8_t* row = Sb + (size_t)i * N;
-    for (int j = threadIdx.x; j < N; j += kThreads) {
-      float v = 0.0f;
-      if (j >= 2 && j < n) {
-        const float pre = fmaxf(fmaxf(d1[j - 1], d2[j - 1]), d1[j - 2]);
-        v = row[j] ? pre + 1.0f : fmaxf(pre - gap, 0.0f);
-      }
-      d0[j] = v;
-      best = fmaxf(best, v);
-    }
-    __syncthreads();
-    float* t = d2;
-    d2 = d1;
-    d1 = d0;
-    d0 = t;
-  }
-  best = block_max(best);
-  if (threadIdx.x == 0)
-    out[b] = (m_len[b] >= 3 && n_len[b] >= 3) ? best : 0.0f;
-}
-
-// dmax: one block per pair, each thread owning kCols consecutive columns;
-// the D rows i-1..i-3 live in registers, the CRP rows arrive in a ring of
+// qmax and dmax: one block per pair, each thread owning kCols consecutive
+// columns; the D rows live in registers, the CRP rows arrive in a ring of
 // shared-memory stages by TMA bulk copies (see the note at the top).
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStages = 4;        // chunks of CRP rows in flight
 constexpr int kMaxBlock = 512;    // threads a pair (registers: 128 each)
 constexpr int kStageBudget = 96 * 1024;   // bytes of all the stages
@@ -142,6 +109,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "=r"(done)
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
 }
 
 // Thread 0 only: copy CRP bytes [start, stop) of global memory into the
@@ -185,6 +157,22 @@ __device__ __forceinline__ uint32_t bytes4(const uint32_t* w, int q) {
   return __funnelshift_r(lo, w[(q >> 2) + 1], 8 * (q & 3));
 }
 
+// The max of the block's `best`s, written to *out by thread 0; red holds
+// one float a warp.
+__device__ __forceinline__ void store_block_max(float best, float* red,
+                                                float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1)
+    best = fmaxf(best, __shfl_down_sync(kFull, best, o));
+  if (lane == 0) red[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int nwarps = blockDim.x >> 5;
+    for (int w = 1; w < nwarps; ++w) best = fmaxf(best, red[w]);
+    *out = best;
+  }
+}
+
 template <int kCols>
 __global__ void __launch_bounds__(kMaxBlock)
 dmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
@@ -197,7 +185,6 @@ dmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
   __shared__ float red[kMaxBlock / 32];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   const int m = min(m_len[b], M), n = min(n_len[b], N);
   const int j0 = threadIdx.x * kCols;
   const int R = chunk_rows(N), sb = stage_bytes(N, kCols);
@@ -207,9 +194,7 @@ dmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
     // chunk c holds rows 1 + c*R .. 1 + (c+1)*R - 1 (row 0 is never read)
     const int chunks = (m - 1 + R - 1) / R;
     if (threadIdx.x == 0) {
-      for (int s = 0; s < kStages; ++s)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                     :: "r"(smem_addr(&full[s])) : "memory");
+      for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       for (int c = 0; c < kStages && c < chunks; ++c)
         issue_chunk(Sb + (size_t)(1 + c * R) * N,
@@ -324,15 +309,122 @@ dmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
       }
     }
   }
-  // max over the block
-  for (int o = 16; o > 0; o >>= 1)
-    best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, o));
-  if (lane == 0) red[warp] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < nwarps; ++w) best = fmaxf(best, red[w]);
-    out[b] = best;
+  store_block_max(best, red, out + b);
+}
+
+// qmax: cells from row 2 and column 2, the three predecessors D[i-1, j-1],
+// D[i-2, j-1] and D[i-1, j-2]; a pair with a side shorter than 3 scores 0.
+template <int kCols>
+__global__ void __launch_bounds__(kMaxBlock)
+qmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
+            const int* __restrict__ n_len, int M, int N, float gap,
+            float* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t stages[];
+  __shared__ uint64_t full[kStages];
+  // the last two D values of each warp's run, double-buffered by row
+  __shared__ float xch[2][kMaxBlock / 32][2];
+  __shared__ float red[kMaxBlock / 32];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = min(m_len[b], M), n = min(n_len[b], N);
+  const int j0 = threadIdx.x * kCols;
+  const int R = chunk_rows(N), sb = stage_bytes(N, kCols);
+  const uint8_t* Sb = S + (size_t)b * M * N;
+  float best = 0.0f;
+  if (m_len[b] >= 3 && n_len[b] >= 3) {
+    // chunk c holds rows 2 + c*R .. 2 + (c+1)*R - 1 (rows 0, 1 are never
+    // read: the recurrence reads no S of a predecessor)
+    const int chunks = (m - 2 + R - 1) / R;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int c = 0; c < kStages && c < chunks; ++c)
+        issue_chunk(Sb + (size_t)(2 + c * R) * N,
+                    Sb + (size_t)min(2 + (c + 1) * R, m) * N,
+                    stages + c * sb, &full[c]);
+    }
+    __syncthreads();
+    // D rows i-1 and i-2 of the run, and of the columns left of it: ld1
+    // at j0-2, j0-1 (row i-1), ld2 at j0-1 (row i-2)
+    float d1[kCols], d2[kCols];
+    float ld1[2] = {0.0f, 0.0f}, ld2 = 0.0f;
+    bool ok[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      d1[c] = d2[c] = 0.0f;
+      ok[c] = j0 + c >= 2 && j0 + c < n;
+    }
+    // row i is row r of chunk c, in stage s; the run's bytes of row i
+    // start at byte q of the stage, 4-aligned when S and N are
+    int c = 0, r = 0, s = 0;
+    int q = (int)((uintptr_t)(Sb + 2 * (size_t)N) & 15) + j0;
+    const bool aligned = ((uintptr_t)Sb & 3) == 0 && (N & 3) == 0;
+    for (int i = 2; i < m; ++i) {
+      if (r == 0) mbar_wait(&full[s], (c / kStages) & 1);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(stages + s * sb);
+      float d0[kCols];
+#pragma unroll
+      for (int g = 0; g < kCols / 4; ++g) {
+        const uint32_t v = aligned ? w[(q >> 2) + g] : bytes4(w, q + 4 * g);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 4 * g + e;
+          const float p1 = k == 0 ? ld1[1] : d1[k - 1];   // D[i-1, j-1]
+          const float p2 = k == 0 ? ld2 : d2[k - 1];      // D[i-2, j-1]
+          const float p3 = k == 0   ? ld1[0]              // D[i-1, j-2]
+                           : k == 1 ? ld1[1]
+                                    : d1[k - 2];
+          const float pre = fmaxf(fmaxf(p1, p2), p3);
+          const float x = (v & (0xFFu << (8 * e))) != 0u
+                              ? pre + 1.0f
+                              : fmaxf(pre - gap, 0.0f);
+          d0[k] = ok[k] ? x : 0.0f;
+          best = fmaxf(best, d0[k]);
+        }
+      }
+      // the run's last two values go to the next thread's ld1
+      float nl[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        nl[k] = __shfl_up_sync(kFull, d0[kCols - 2 + k], 1);
+      if (lane == 31) {
+        xch[i & 1][warp][0] = d0[kCols - 2];
+        xch[i & 1][warp][1] = d0[kCols - 1];
+      }
+      // every thread has read row i (and, at a chunk's last row, the
+      // chunk), and the warps' last values are out
+      __syncthreads();
+      if (lane == 0 && warp > 0) {
+        nl[0] = xch[i & 1][warp - 1][0];
+        nl[1] = xch[i & 1][warp - 1][1];
+      }
+      if (threadIdx.x == 0) {
+        nl[0] = nl[1] = 0.0f;
+        // the chunk is consumed: its stage takes chunk c + kStages
+        const int cn = c + kStages;
+        if (r == R - 1 && cn < chunks)
+          issue_chunk(Sb + (size_t)(2 + cn * R) * N,
+                      Sb + (size_t)min(2 + (cn + 1) * R, m) * N,
+                      stages + s * sb, &full[s]);
+      }
+      ld2 = ld1[1];
+      ld1[0] = nl[0];
+      ld1[1] = nl[1];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        d2[k] = d1[k];
+        d1[k] = d0[k];
+      }
+      q += N;
+      if (++r == R) {
+        r = 0;
+        ++c;
+        s = s + 1 == kStages ? 0 : s + 1;
+        q = (int)((uintptr_t)(Sb + (size_t)(2 + c * R) * N) & 15) + j0;
+      }
+    }
   }
+  store_block_max(best, red, out + b);
 }
 
 // Qmax with gap_onset != gap_extension: the gap branch subtracts each
@@ -458,19 +550,40 @@ int launch(Kernel kernel, int rows, int B, int N, int device,
   return (int)cudaGetLastError();
 }
 
+using RowKernel = void (*)(const uint8_t*, const int*, const int*, int, int,
+                           float, float*);
+
 template <int kCols>
-cudaError_t launch_dmax(int B, int threads, size_t smem, cudaStream_t stream,
-                        const uint8_t* S, const int* m_len, const int* n_len,
-                        int M, int N, float gap, float* out) {
+RowKernel row_kernel(bool dmax) {
+  return dmax ? dmax_kernel<kCols> : qmax_kernel<kCols>;
+}
+
+// dmax or qmax, one block per pair: 4 columns a thread up to N = 2048 (128
+// threads at N = 512), then 8, 16, 32, so at most kMaxBlock threads.
+int launch_registers(bool dmax, const uint8_t* S, const int* m_len,
+                     const int* n_len, int B, int M, int N, float gap,
+                     float* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (N > 32 * kMaxBlock) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  int cols = 4;
+  while (N > cols * kMaxBlock) cols *= 2;
+  const int warps = (N + 32 * cols - 1) / (32 * cols);
+  const int threads = 32 * (warps > 0 ? warps : 1);
+  const size_t smem = (size_t)kStages * stage_bytes(N, cols);
+  const RowKernel kernel = cols == 4    ? row_kernel<4>(dmax)
+                           : cols == 8  ? row_kernel<8>(dmax)
+                           : cols == 16 ? row_kernel<16>(dmax)
+                                        : row_kernel<32>(dmax);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dmax_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  dmax_kernel<kCols><<<B, threads, smem, stream>>>(S, m_len, n_len, M, N,
-                                                   gap, out);
-  return cudaGetLastError();
+  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(S, m_len, n_len, M, N,
+                                                     gap, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -480,39 +593,15 @@ extern "C" {
 int acoss_qmax(const uint8_t* S, const int* m_len, const int* n_len, int B,
                int M, int N, float gap, float* out, int device,
                void* stream) {
-  return launch(qmax_kernel, 3, B, N, device, (cudaStream_t)stream, S,
-                m_len, n_len, M, N, gap, out);
+  return launch_registers(false, S, m_len, n_len, B, M, N, gap, out, device,
+                          stream);
 }
 
 int acoss_dmax(const uint8_t* S, const int* m_len, const int* n_len, int B,
                int M, int N, float gap, float* out, int device,
                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (N > 32 * kMaxBlock) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaGetLastError();
-  // 4 columns a thread up to N = 2048 (128 threads at N = 512), then 8,
-  // 16, 32: at most kMaxBlock threads
-  int cols = 4;
-  while (N > cols * kMaxBlock) cols *= 2;
-  const int warps = (N + 32 * cols - 1) / (32 * cols);
-  const int threads = 32 * (warps > 0 ? warps : 1);
-  const size_t smem = (size_t)kStages * stage_bytes(N, cols);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (cols == 4)
-    err = launch_dmax<4>(B, threads, smem, st, S, m_len, n_len, M, N, gap,
-                         out);
-  else if (cols == 8)
-    err = launch_dmax<8>(B, threads, smem, st, S, m_len, n_len, M, N, gap,
-                         out);
-  else if (cols == 16)
-    err = launch_dmax<16>(B, threads, smem, st, S, m_len, n_len, M, N, gap,
-                          out);
-  else
-    err = launch_dmax<32>(B, threads, smem, st, S, m_len, n_len, M, N, gap,
-                          out);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_registers(true, S, m_len, n_len, B, M, N, gap, out, device,
+                          stream);
 }
 
 int acoss_qmax_uneq(const uint8_t* S, const int* m_len, const int* n_len,

@@ -49,13 +49,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "select.cuh"
+
 namespace {
+
+using acoss::kNoKey;       // above every threshold
+using acoss::warp_kth;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kMaxFiniteBits = 0x7F7FFFFFu;
-constexpr unsigned kNoKey = 0xFFFFFFFFu;   // above every threshold
 constexpr int kMaxKeysPerLane = 192;        // lines of up to 6,144
 constexpr int kLoads = 8;    // loads in flight a thread in the strip kernel
 constexpr size_t kMaxSmem = 227 * 1024;
@@ -66,48 +69,6 @@ __device__ __forceinline__ int effective(int len, int L, int m) {
 
 __device__ __forceinline__ float round_k(float kappa, int len) {
   return rintf(__fmul_rn(kappa, (float)len));
-}
-
-// The exact k-th smallest (k >= 1) of a warp's keys (lane l holds keys
-// l, l + 32, ...; non-negative float bits, monotone as unsigned), clamped
-// to kMaxFiniteBits: the smallest t <= kMaxFiniteBits with
-// count(key <= t) >= k, else kMaxFiniteBits. Bisection between the
-// smallest key and a bound from the lanes' smallest keys; once a midpoint
-// has exactly k keys at or below it, the answer is the largest of those,
-// so the search stops there. Same value in every lane.
-template <int K>
-__device__ __forceinline__ unsigned warp_kth(const unsigned (&key)[K],
-                                             int k) {
-  // the two smallest keys of each lane: at least 32 (64) keys of the warp
-  // are <= the largest of the lanes' smallest (second smallest), so for
-  // k <= 32 (64) the answer is at most that
-  unsigned m1 = kNoKey, m2 = kNoKey;
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    m2 = min(m2, max(m1, key[t]));
-    m1 = min(m1, key[t]);
-  }
-  unsigned lo = min(__reduce_min_sync(kFull, m1), kMaxFiniteBits);
-  unsigned hi = k <= 32   ? __reduce_max_sync(kFull, m1)
-                : k <= 64 ? __reduce_max_sync(kFull, m2)
-                          : kMaxFiniteBits;
-  hi = min(hi, kMaxFiniteBits);
-  while (lo < hi) {
-    const unsigned mid = lo + (hi - lo) / 2;
-    int cnt = 0;
-#pragma unroll
-    for (int t = 0; t < K; ++t) cnt += key[t] <= mid;
-    cnt = __reduce_add_sync(kFull, cnt);
-    if (cnt == k) {
-      unsigned best = 0;
-#pragma unroll
-      for (int t = 0; t < K; ++t)
-        if (key[t] <= mid) best = max(best, key[t]);
-      return __reduce_max_sync(kFull, best);
-    }
-    if (cnt > k) hi = mid; else lo = mid + 1;
-  }
-  return hi;
 }
 
 constexpr int kRegDims = 16;   // feature dims a thread keeps in registers
@@ -240,7 +201,7 @@ band_kernel(const float* __restrict__ X, const float* __restrict__ Y,
         key[t] = __float_as_uint(acc);
       }
     }
-    const unsigned t = warp_kth(key, k);
+    const unsigned t = warp_kth(key, k, kMaxFiniteBits);
     if (lane == 0) tr[r] = t;
   }
 }
@@ -293,7 +254,7 @@ strip_kernel(const float* __restrict__ W, const unsigned* __restrict__ t_row,
       const int i = lane + 32 * t;
       key[t] = i < l1e ? strip[i * cs + c] : kNoKey;
     }
-    const unsigned t = warp_kth(key, k);
+    const unsigned t = warp_kth(key, k, kMaxFiniteBits);
     if (lane == 0) t_col[c] = t;
   }
   __syncthreads();

@@ -20,12 +20,18 @@
 // dependent count-and-halve passes. The TPU kernels keep whole (L, L)
 // matrices in VMEM and search all lines of a pair at once; a block here
 // has 227 KB of shared memory, and one (1024, 1024) fp32 matrix is 4 MB.
-// So the design is one block per line: the line's keys (and values) go to
-// shared memory once (at most 8 KB), each pass is a block-wide count with
-// one barrier, and the many independent lines (65k..262k blocks a call)
-// keep the SMs busy while each one waits on its barriers. The matrices are
-// read from device memory twice (search, then mask or affinity), and a
-// column line is a strided read; both are small next to the passes.
+// The binarizer and the kNN mask are one block per line: the line's keys
+// go to shared memory once (at most 8 KB), each pass is a block-wide count
+// with one barrier, and the many independent lines (65k..262k blocks a
+// call) keep the SMs busy while each one waits on its barriers; a column
+// line is a strided read.
+// WCSMSSM is one warp per line with its keys in registers (`warp_kth`:
+// warp reductions, no barrier, an exact early stop), the column lines
+// staged as coalesced row segments, then an output pass in 32 x 32 tiles
+// that computes each affinity once and stores it with 128-bit stores to
+// its cell and to the mirror cell (W_SSMA and W_SSMB are symmetric, the
+// lower-left quadrant is the upper-right's transpose); its bound is the
+// (B, 2L, 2L) output it writes.
 // The TPU-only parts (two pairs a grid step, the `dual` layout, VMEM slab
 // sizing, custom_vmap) have no counterpart: a launch takes a flat batch.
 
@@ -42,6 +48,11 @@ using acoss::float_key;
 using acoss::key_float;
 using acoss::kInfBits;
 using acoss::kMaxFiniteBits;
+using acoss::kMaxFiniteUKey;
+using acoss::kNoKey;
+using acoss::float_ukey;
+using acoss::ukey_float;
+using acoss::warp_kth;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -146,90 +157,127 @@ __device__ __forceinline__ void split_k(int K, int m, int n, int* k1,
   *k2 = K - *k1;
 }
 
-// get_W's symmetrized, zero-diagonal self-dissimilarity of A at (i, j)
-__device__ __forceinline__ float dsym(const float* A, int L, int i, int j) {
-  return i == j ? 0.0f : 0.5f * (A[(size_t)i * L + j] + A[(size_t)j * L + i]);
+constexpr int kLoads = 8;             // loads in flight a thread (staging)
+constexpr int kMaxKeysPerLane = 192;  // stats lines of up to 6,144
+constexpr int kTile = 32;             // the out kernel's square tiles
+constexpr size_t kMaxSmem = 227 * 1024;
+
+size_t strip_bytes(int L, int rb) {
+  return sizeof(float) * (size_t)L * (rb + 1);
 }
 
-// grid (L, B, 4), one block per line statistic of pair b:
-//   z = 0: row q of DSym(SSMA), columns >= l1 -> BIG: the mean of its
-//          clip(k1 + 1) smallest, scaled by (k1 + 1) / max(k1, 1)
-//   z = 1: the same for SSMB with l2 and k2
+// Lines a stats block takes: the widest band whose column strip fits a
+// block's shared memory; 0 when none does.
+int band_lines(int L) {
+  for (int rb = 16; rb >= 8; rb /= 2)
+    if (strip_bytes(L, rb) <= kMaxSmem) return rb;
+  return 0;
+}
+
+// grid (ceil(L / rb), B, 3), one block per band of rb lines (a power of
+// two) of pair b, each line's mean of its k smallest values into stats
+// (B, 4, L):
+//   z = 0: row q of DSym(SSMA), cells >= l1 -> BIG: the mean of its
+//          clip(k1 + 1) smallest, scaled by (k1 + 1) / max(k1, 1) (row 0)
+//   z = 1: the same for SSMB with l2 and k2 (row 1)
 //   z = 2: row q of the CSM, cells outside (l1, l2) -> BIG: the mean of
-//          its clip(k2) smallest
-//   z = 3: column q of the CSM: the mean of its clip(k1) smallest
-// (clip to [1, L]). The mean of the k smallest is sum(v < t) +
-// (k - count(v < t)) * t over k, t the k-th smallest value: the TPU
-// kernel's formula. Lines outside the valid block are never read.
+//          its clip(k2) smallest (row 2); and column q: of its clip(k1)
+//          smallest (row 3)
+// (clip to [1, L]); 0 for a line outside the valid block. A DSym row q
+// needs column q of its matrix as well as row q, and a CSM column line is
+// a column, so the block first stages the band's columns of the matrix's
+// valid rows in shared memory as coalesced row segments (odd row stride:
+// a warp reading a column hits 32 banks). Then a warp takes whole lines,
+// with L/32 keys a lane in registers: the k-th smallest by `warp_kth`,
+// then the sum and count of the values below it by warp reductions. The
+// mean of the k smallest is sum(v < t) + (k - count(v < t)) * t over k,
+// t the k-th smallest value: the TPU kernel's formula.
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 wcsmssm_stats_kernel(const float* __restrict__ SA,
                      const float* __restrict__ SB,
                      const float* __restrict__ C, const int* __restrict__ l1,
                      const int* __restrict__ l2, const int* __restrict__ Ks,
-                     int L, float* __restrict__ stats) {
-  extern __shared__ int line[];          // (L,) keys then (L,) values
-  float* vals = reinterpret_cast<float*>(line + L);
-  __shared__ int red[2 * kWarps];
-  __shared__ float fsum[kWarps];
-  __shared__ int isum[kWarps];
-  const int b = blockIdx.y, z = blockIdx.z, q = blockIdx.x;
-  const int m = l1[b], n = l2[b];
-  int k1, k2;
-  split_k(Ks[b], m, n, &k1, &k2);
-  float* out = stats + ((size_t)b * 4 + z) * L + q;
-  if (q >= (z == 1 || z == 3 ? n : m)) {
-    if (threadIdx.x == 0) *out = 0.0f;
-    return;
-  }
-  const size_t off = (size_t)b * L * L;
-  for (int t = threadIdx.x; t < L; t += kThreads) {
-    float v;
-    if (z == 0) {
-      v = t < m ? dsym(SA + off, L, q, t) : kBig;
-    } else if (z == 1) {
-      v = t < n ? dsym(SB + off, L, q, t) : kBig;
-    } else if (z == 2) {
-      v = t < n ? C[off + (size_t)q * L + t] : kBig;
-    } else {
-      v = t < m ? C[off + (size_t)t * L + q] : kBig;
-    }
-    vals[t] = v;
-    line[t] = float_key(v);
-  }
-  const int kraw = z == 0 ? k1 + 1 : z == 1 ? k2 + 1 : z == 2 ? k2 : k1;
-  const int k = min(max(kraw, 1), L);
-  __syncthreads();
-  const int tk = block_kth_key<kThreads>(line, L, k, red);
-  float s = 0.0f;
-  int c = 0;
-  for (int t = threadIdx.x; t < L; t += kThreads) {
-    if (line[t] < tk) {
-      s += vals[t];
-      ++c;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-  c = __reduce_add_sync(0xffffffffu, c);
+                     int L, int rb, float* __restrict__ stats) {
+  extern __shared__ float strip[];      // (rows, rb + 1): X[t, q0 + c]
+  const int b = blockIdx.y, z = blockIdx.z, q0 = blockIdx.x * rb;
+  const int cs = rb + 1, rb_log2 = __ffs(rb) - 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    fsum[warp] = s;
-    isum[warp] = c;
+  const int m = min(max(l1[b], 0), L), n = min(max(l2[b], 0), L);
+  int k1, k2;
+  split_k(Ks[b], l1[b], l2[b], &k1, &k2);
+  const float* X = (z == 0 ? SA : z == 1 ? SB : C) + (size_t)b * L * L;
+  // the matrix's valid rows and columns; the band's columns that are lines
+  const int rows = z == 1 ? n : m, cols = z == 0 ? m : n;
+  const int sc = max(min(rb, cols - q0), 0);
+  if (sc > 0) {
+    for (int t0 = threadIdx.x; t0 < rows * rb; t0 += kLoads * kThreads) {
+      float v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int t = t0 + u * kThreads, i = t >> rb_log2, c = t & (rb - 1);
+        v[u] = t < rows * rb && c < sc ? __ldg(X + (size_t)i * L + q0 + c)
+                                       : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int t = t0 + u * kThreads, i = t >> rb_log2, c = t & (rb - 1);
+        if (t < rows * rb && c < sc) strip[i * cs + c] = v[u];
+      }
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float ts = 0.0f;
-    int tcnt = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      ts += fsum[w];
-      tcnt += isum[w];
+  for (int ln = warp; ln < (z == 2 ? 2 * rb : rb); ln += kWarps) {
+    const bool column = ln >= rb;       // a CSM column line
+    const int c = ln & (rb - 1), q = q0 + c;
+    if (q >= L) continue;
+    float* out = stats + ((size_t)b * 4 + z + column) * L + q;
+    // valid lines, and valid cells a line (the others are BIG)
+    const bool csm_row = z == 2 && !column;
+    const int lines = csm_row ? rows : cols, nv = csm_row ? cols : rows;
+    if (q >= lines) {
+      if (lane == 0) *out = 0.0f;
+      continue;
     }
-    const float kf = (float)k;
-    float mean = (ts + (kf - (float)tcnt) * key_float(tk)) / kf;
-    if (z < 2) {
-      const float Kf = (float)(z == 0 ? k1 : k2);
-      mean = mean * (Kf + 1.0f) / fmaxf(Kf, 1.0f);
+    const float* xr = X + (size_t)q * L;
+    unsigned key[K];
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      const int t = lane + 32 * u;
+      key[u] = kNoKey;
+      if (t < L) {
+        float v = kBig;
+        if (t < nv) {
+          if (column) v = strip[t * cs + c];
+          else if (csm_row) v = __ldg(xr + t);
+          else v = t == q ? 0.0f : 0.5f * (__ldg(xr + t) + strip[t * cs + c]);
+        }
+        key[u] = float_ukey(v);
+      }
     }
-    *out = mean;
+    const int kraw = z == 0 ? k1 + 1 : z == 1 ? k2 + 1 : column ? k1 : k2;
+    const int k = min(max(kraw, 1), L);
+    const unsigned tk = warp_kth(key, k, kMaxFiniteUKey);
+    float s = 0.0f;
+    int cnt = 0;
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      if (key[u] < tk) {
+        s += ukey_float(key[u]);
+        ++cnt;
+      }
+    }
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) {
+      const float kf = (float)k;
+      float mean = (s + (kf - (float)cnt) * ukey_float(tk)) / kf;
+      if (z < 2) {
+        const float Kf = (float)(z == 0 ? k1 : k2);
+        mean = mean * (Kf + 1.0f) / fmaxf(Kf, 1.0f);
+      }
+      *out = mean;
+    }
   }
 }
 
@@ -243,37 +291,118 @@ __device__ __forceinline__ float affinity(float d, float ra, float rb,
   return expf(-(d * d) / denom);
 }
 
-// grid (2L, B): output row r of [[WA, WC], [WC^T, WB]] (B, 2L, 2L); zero
-// outside each block's valid (l1, l2) part.
+// v[0 .. min(avail, 4)) to p, one 128-bit store when kVec and all four fit
+template <bool kVec>
+__device__ __forceinline__ void put4(float* p, const float (&v)[4],
+                                     int avail) {
+  if (kVec && avail >= 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < avail) p[k] = v[k];
+}
+
+// grid (units, B), one unit of pair b's (2L, 2L) output a block: unit
+// u < nt * nt is the W_CSM tile (I, J) = (u / nt, u % nt), written with
+// its transpose into W_CSM^T; the units after it are the tiles (I, J),
+// I <= J, of W_SSMA and then of W_SSMB, each written with its mirror
+// (J, I), which holds the same values: (a + b) and (ra + rb) are the
+// same sums either way round. A thread computes 4 consecutive cells of a
+// tile row and stores them as one float4 (kVec: L and the pointers
+// 16-byte aligned); the mirror's rows come from a padded shared tile, and
+// an SSM's transposed operand X[J, I] is staged in another. Cells outside
+// the valid (l1, l2) part are 0, and a tile wholly outside it writes its
+// zeros and reads nothing.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 wcsmssm_out_kernel(const float* __restrict__ SA, const float* __restrict__ SB,
                    const float* __restrict__ C, const int* __restrict__ l1,
                    const int* __restrict__ l2, const float* __restrict__ stats,
                    int L, float Mu, float* __restrict__ W) {
-  const int b = blockIdx.y, r = blockIdx.x;
-  const int m = l1[b], n = l2[b];
-  const size_t off = (size_t)b * L * L;
-  const float* mA = stats + (size_t)b * 4 * L;
-  const float* mB = mA + L;
-  const float* m1 = mB + L;
-  const float* m2 = m1 + L;
-  float* out = W + ((size_t)b * 2 * L + r) * 2 * L;
-  for (int c = threadIdx.x; c < 2 * L; c += kThreads) {
-    float w = 0.0f;
-    if (r < L && c < L) {                       // W_SSMA
-      if (r < m && c < m)
-        w = affinity(dsym(SA + off, L, r, c), mA[r], mA[c], Mu);
-    } else if (r >= L && c >= L) {              // W_SSMB
-      const int i = r - L, j = c - L;
-      if (i < n && j < n)
-        w = affinity(dsym(SB + off, L, i, j), mB[i], mB[j], Mu);
-    } else {                                    // W_CSM or its transpose
-      const int i = r < L ? r : c, j = r < L ? c - L : r - L;
-      if (i < m && j < n)
-        w = affinity(C[off + (size_t)i * L + j], m1[i], m2[j], Mu);
+  __shared__ float xt[kTile][kTile + 1];   // X tile (J, I)
+  __shared__ float wt[kTile][kTile + 1];   // this tile's affinities
+  const int b = blockIdx.y, nt = (L + kTile - 1) / kTile;
+  int u = blockIdx.x, z = 0, I, J;
+  if (u < nt * nt) {
+    I = u / nt;
+    J = u % nt;
+  } else {
+    const int tri = nt * (nt + 1) / 2;
+    u -= nt * nt;
+    z = 1 + (u >= tri);
+    u -= (z - 1) * tri;
+    I = 0;
+    while (u >= nt - I) {
+      u -= nt - I;
+      ++I;
     }
-    out[c] = w;
+    J = I + u;
   }
+  const int m = min(max(l1[b], 0), L), n = min(max(l2[b], 0), L);
+  // the quadrant's valid rows and columns, and its origin in the output
+  // (its mirror's is (co, ro))
+  const int rv = z == 2 ? n : m, cv = z == 1 ? m : n;
+  const int ro = z == 2 ? L : 0, co = z == 1 ? 0 : L;
+  const float* X = (z == 0 ? C : z == 1 ? SA : SB) + (size_t)b * L * L;
+  const float* st = stats + (size_t)b * 4 * L;
+  const float* rs = st + (z == 0 ? 2 * L : z == 1 ? 0 : L);   // row radii
+  const float* cr = st + (z == 0 ? 3 * L : z == 1 ? 0 : L);   // column's
+  const int r = threadIdx.x >> 3, c = (threadIdx.x & 7) * 4;
+  const int i = I * kTile + r, j0 = J * kTile + c;
+  float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (I * kTile < rv && J * kTile < cv) {
+    if (z > 0) {
+      for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+        const int gi = J * kTile + (e >> 5), gj = I * kTile + (e & 31);
+        xt[e >> 5][e & 31] =
+            gi < rv && gj < rv ? __ldg(X + (size_t)gi * L + gj) : 0.0f;
+      }
+    }
+    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (i < rv) {
+      const float* xr = X + (size_t)i * L + j0;
+      if (kVec && j0 < cv) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(xr));
+        x[0] = v.x;
+        x[1] = v.y;
+        x[2] = v.z;
+        x[3] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (j0 + k < cv) x[k] = __ldg(xr + k);
+      }
+    }
+    __syncthreads();
+    if (i < rv) {
+      const float ra = __ldg(rs + i);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = j0 + k;
+        if (j < cv) {
+          const float d = z == 0   ? x[k]
+                          : i == j ? 0.0f
+                                   : 0.5f * (x[k] + xt[c + k][r]);
+          w[k] = affinity(d, ra, __ldg(cr + j), Mu);
+        }
+      }
+    }
+  }
+  float* Wb = W + (size_t)b * 4 * L * L;
+  const size_t ld = 2 * (size_t)L;
+  if (i < L) put4<kVec>(Wb + (ro + i) * ld + co + j0, w, L - j0);
+  if (z > 0 && I == J) return;
+  // the mirror tile (J, I): its row r is this tile's column r
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wt[r][c + k] = w[k];
+  __syncthreads();
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = wt[c + k][r];
+  const int i2 = J * kTile + r, j2 = I * kTile + c;
+  if (i2 < L) put4<kVec>(Wb + (co + i2) * ld + ro + j2, v, L - j2);
 }
 
 cudaError_t smem_limit(const void* fn, size_t bytes) {
@@ -326,16 +455,32 @@ int acoss_wcsmssm(const float* SA, const float* SB, const float* C,
   cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (L > 32 * kMaxKeysPerLane) return (int)cudaErrorInvalidValue;
   if (B == 0 || L == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)L * (sizeof(int) + sizeof(float));
-  err = smem_limit((const void*)wcsmssm_stats_kernel, smem);
+  const int rb = band_lines(L);
+  const size_t smem = strip_bytes(L, rb);
+  // keys per lane: the first that covers a line of L (16 up to L = 512)
+  const int kpl = (L + 31) / 32;
+  auto stats_kernel = kpl <= 16   ? wcsmssm_stats_kernel<16>
+                      : kpl <= 32 ? wcsmssm_stats_kernel<32>
+                      : kpl <= 64 ? wcsmssm_stats_kernel<64>
+                                  : wcsmssm_stats_kernel<kMaxKeysPerLane>;
+  err = smem_limit((const void*)stats_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  wcsmssm_stats_kernel<<<dim3(L, B, 4), kThreads, smem, stream>>>(
-      SA, SB, C, l1, l2, K, L, stats);
+  stats_kernel<<<dim3((L + rb - 1) / rb, B, 3), kThreads, smem, stream>>>(
+      SA, SB, C, l1, l2, K, L, rb, stats);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wcsmssm_out_kernel<<<dim3(2 * L, B), kThreads, 0, stream>>>(
-      SA, SB, C, l1, l2, stats, L, Mu, W);
+  const int nt = (L + kTile - 1) / kTile;
+  const dim3 grid(nt * nt + nt * (nt + 1), B);
+  const bool vec = L % 4 == 0 && (((uintptr_t)SA | (uintptr_t)SB |
+                                   (uintptr_t)C | (uintptr_t)W) & 15) == 0;
+  if (vec)
+    wcsmssm_out_kernel<true><<<grid, kThreads, 0, stream>>>(
+        SA, SB, C, l1, l2, stats, L, Mu, W);
+  else
+    wcsmssm_out_kernel<false><<<grid, kThreads, 0, stream>>>(
+        SA, SB, C, l1, l2, stats, L, Mu, W);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,15 @@
-// Exact order statistics of one line (a matrix row or column) held in
-// shared memory, shared by the selection kernels of knn.cu.
+// Exact order statistics of one line (a matrix row or column), shared by
+// the selection kernels of knn.cu and crp.cu.
 //
 // A float becomes a signed monotone int32 key (int order == float order),
 // and the k-th smallest key of a line is found by a binary search over the
-// finite-key range [kMinFiniteKey, kMaxFiniteBits]: 32 halvings, each one
-// block-wide count of the keys <= the midpoint. This is the search of the
-// TPU kernels of `acoss_tpu/ops/crp_pallas.py` (`_binarize_kernel`,
-// `_knn_mask_kernel`, `_mean_k_smallest_vmem`), so ties at the k-th value
-// are exact and every key <= the result is kept.
+// finite-key range: each halving counts the keys <= the midpoint. This is
+// the search of the TPU kernels of `acoss_tpu/ops/crp_pallas.py`
+// (`_binarize_kernel`, `_knn_mask_kernel`, `_mean_k_smallest_vmem`), so
+// ties at the k-th value are exact and every key <= the result is kept.
+// Two forms: `block_kth_key`, a line in shared memory searched by a whole
+// block (32 halvings, a block barrier each), and `warp_kth`, a line held
+// in one warp's registers (warp reductions, no barrier, early stop).
 
 #pragma once
 
@@ -20,6 +22,7 @@ namespace acoss {
 constexpr int kMinFiniteKey = -2139095040;
 constexpr int kMaxFiniteBits = 0x7F7FFFFF;
 constexpr int kInfBits = 0x7F800000;
+constexpr unsigned kNoKey = 0xFFFFFFFFu;   // above every key warp_kth takes
 
 // Identity on non-negative floats, bit complement of the magnitude on
 // negative ones. -0.0 is made +0.0 first: the two compare equal as floats,
@@ -32,6 +35,17 @@ __device__ __forceinline__ int float_key(float v) {
 
 __device__ __forceinline__ float key_float(int k) {
   return __int_as_float(k ^ ((k >> 31) & 0x7FFFFFFF));
+}
+
+// float_key with its sign bit flipped: monotone as an unsigned int, for
+// warp_kth; +FLT_MAX keys to kMaxFiniteUKey.
+constexpr unsigned kMaxFiniteUKey = 0xFF7FFFFFu;
+__device__ __forceinline__ unsigned float_ukey(float v) {
+  return (unsigned)float_key(v) ^ 0x80000000u;
+}
+
+__device__ __forceinline__ float ukey_float(unsigned k) {
+  return key_float((int)(k ^ 0x80000000u));
 }
 
 // The k-th smallest key (k >= 1) of line[0, n): the smallest t in
@@ -57,6 +71,48 @@ __device__ int block_kth_key(const int* line, int n, int k, int* red) {
     int total = 0;
     for (int w = 0; w < kWarps; ++w) total += r[w];
     if (total >= k) hi = mid; else lo = mid + 1;
+  }
+  return hi;
+}
+
+// The exact k-th smallest (k >= 1) of a warp's unsigned monotone keys
+// (lane l holds keys l, l + 32, ...; kNoKey for none), clamped to `top`:
+// the smallest t <= top with count(key <= t) >= k, else top. Bisection
+// between the smallest key and a bound from the lanes' smallest keys; once
+// a midpoint has exactly k keys at or below it, the answer is the largest
+// of those, so the search stops there. Same value in every lane.
+template <int K>
+__device__ __forceinline__ unsigned warp_kth(const unsigned (&key)[K], int k,
+                                             unsigned top) {
+  constexpr unsigned kFull = 0xffffffffu;
+  // the two smallest keys of each lane: at least 32 (64) keys of the warp
+  // are <= the largest of the lanes' smallest (second smallest), so for
+  // k <= 32 (64) the answer is at most that
+  unsigned m1 = kNoKey, m2 = kNoKey;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    m2 = min(m2, max(m1, key[t]));
+    m1 = min(m1, key[t]);
+  }
+  unsigned lo = min(__reduce_min_sync(kFull, m1), top);
+  unsigned hi = k <= 32   ? __reduce_max_sync(kFull, m1)
+                : k <= 64 ? __reduce_max_sync(kFull, m2)
+                          : top;
+  hi = min(hi, top);
+  while (lo < hi) {
+    const unsigned mid = lo + (hi - lo) / 2;
+    int cnt = 0;
+#pragma unroll
+    for (int t = 0; t < K; ++t) cnt += key[t] <= mid;
+    cnt = __reduce_add_sync(kFull, cnt);
+    if (cnt == k) {
+      unsigned best = 0;
+#pragma unroll
+      for (int t = 0; t < K; ++t)
+        if (key[t] <= mid) best = max(best, key[t]);
+      return __reduce_max_sync(kFull, best);
+    }
+    if (cnt > k) hi = mid; else lo = mid + 1;
   }
   return hi;
 }

@@ -17,13 +17,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "acoss_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                 "-std=c++17", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
 #: Shared memory one block may use on Hopper (sm_90), in bytes.
 MAX_SMEM = 227 * 1024
 
@@ -75,15 +77,31 @@ def compile_once(out: Path, command) -> Path:
 
 
 def build(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile the kernels unless a library for these sources exists;
-    returns its path. Raises RuntimeError with nvcc's stderr on failure."""
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, all started together, then one link; returns the
+    library's path. Raises RuntimeError with nvcc's stderr on failure."""
     out = library_path(build_dir)
     if out.exists():
         return out
     nvcc = find_nvcc()
-    return compile_once(out, lambda tmp: [
-        nvcc, *NVCC_FLAGS, "-o", str(tmp),
-        *[str(p) for p in sources() if p.suffix == ".cu"]])
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in sources():
+            if src.suffix == ".cu":
+                obj = Path(tmp) / f"{src.stem}.o"
+                jobs.append((src, obj, subprocess.Popen(
+                    [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                    text=True)))
+        errors = [(src, proc.communicate()[1], proc.returncode)
+                  for src, _, proc in jobs]
+        failed = [f"{src.name} ({rc}):\n{err}" for src, err, rc in errors
+                  if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return compile_once(out, lambda t: [
+            nvcc, *NVCC_FLAGS, "-o", str(t), *(str(o) for _, o, _ in jobs)])
 
 
 _P = ctypes.c_void_p

@@ -68,11 +68,11 @@ def _check_args(S, m_len, n_len, max_n: int) -> None:
         raise ValueError(f"the kernel takes N <= {max_n}, got N={N}")
 
 
-#: The longest rows each kernel takes: qmax, unequal-gap qmax and SW keep
-#: three D rows of fp32 in a block's shared memory; dmax keeps its D rows
-#: in registers, at most 32 columns a thread and 512 threads a pair.
+#: The longest rows each kernel takes: unequal-gap qmax and SW keep three
+#: D rows of fp32 in a block's shared memory; qmax and dmax keep their D
+#: rows in registers, at most 32 columns a thread and 512 threads a pair.
 SMEM_MAX_N = _build.MAX_SMEM // (4 * 3)
-DMAX_MAX_N = 32 * 512
+REGISTER_MAX_N = 32 * 512
 
 
 def _launch(entry: str, max_n: int, S, m_len, n_len, *params: float):
@@ -95,7 +95,7 @@ def qmax_batch_cuda(S: torch.Tensor, m_len: torch.Tensor,
     uint8, m_len/n_len (B,) int32 -> (B,) float32 scores."""
     if S.device.type == "cpu":
         return qmax_batch_ref(S, m_len, n_len, gap)
-    out = _launch("acoss_qmax", SMEM_MAX_N, S, m_len, n_len, gap)
+    out = _launch("acoss_qmax", REGISTER_MAX_N, S, m_len, n_len, gap)
     qmax_batch_cuda.launches += 1
     return out
 
@@ -106,7 +106,7 @@ def dmax_batch_cuda(S: torch.Tensor, m_len: torch.Tensor,
     as `qmax_batch_cuda`)."""
     if S.device.type == "cpu":
         return dmax_batch_ref(S, m_len, n_len, gap)
-    out = _launch("acoss_dmax", DMAX_MAX_N, S, m_len, n_len, gap)
+    out = _launch("acoss_dmax", REGISTER_MAX_N, S, m_len, n_len, gap)
     dmax_batch_cuda.launches += 1
     return out
 

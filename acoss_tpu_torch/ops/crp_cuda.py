@@ -265,6 +265,11 @@ def wcsmssm_ref(SSMA: torch.Tensor, SSMB: torch.Tensor, CSM: torch.Tensor,
     return fusion.get_WCSMSSM(SSMA, SSMB, CSM, K, Mu, m_len=l1, n_len=l2)
 
 
+#: The longest lines the WCSMSSM kernel takes: a warp holds a line's keys
+#: in registers, at most 192 a lane.
+WCSMSSM_MAX_L = 32 * 192
+
+
 def wcsmssm_batch(SSMA: torch.Tensor, SSMB: torch.Tensor, CSM: torch.Tensor,
                   l1: torch.Tensor, l2: torch.Tensor, K: torch.Tensor,
                   Mu: float = 0.5) -> torch.Tensor:
@@ -279,10 +284,10 @@ def wcsmssm_batch(SSMA: torch.Tensor, SSMB: torch.Tensor, CSM: torch.Tensor,
         _check_square(name, t, SSMA)
     _check_lengths(SSMA, l1=l1, l2=l2, K=K)
     B, L, _ = SSMA.shape
-    if B > 65535:
-        raise ValueError(f"need B <= 65535 (got {B})")
-    _check_line_smem(L, 8)
-    stats = torch.empty((B, 4, L), dtype=torch.float32, device=SSMA.device)
+    if B > 65535 or L > WCSMSSM_MAX_L:
+        raise ValueError(f"need B <= 65535 and L <= {WCSMSSM_MAX_L} (got "
+                         f"B={B}, L={L})")
+    stats =torch.empty((B, 4, L), dtype=torch.float32, device=SSMA.device)
     W = torch.empty((B, 2 * L, 2 * L), dtype=torch.float32,
                     device=SSMA.device)
     rc = _build.library().acoss_wcsmssm(

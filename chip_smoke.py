@@ -5,8 +5,9 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 `acoss_tpu_torch/csrc`, checks each kernel against its plain PyTorch
 version on the card at the main paths' shapes (bit for bit, and the fused
-WCSMSSM build within rtol 2e-5 / atol 2e-6; the fused CRP also on a
-tie-heavy batch and on odd lengths), checks the four aligner
+WCSMSSM build within rtol 2e-5 / atol 2e-6, with the split of its two
+launches; the fused CRP also on a tie-heavy batch and on odd lengths),
+checks the four aligner
 kernels bit for bit against the port's native C++ aligners (`native.py`),
 then drives the paths over a covers80-geometry synthetic corpus (160
 songs, 210 tiles, 12,720 pairs):
@@ -87,6 +88,22 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_split(fn) -> str:
+    """The device ms of each kernel launched by one call of `fn`, by
+    torch.profiler: "name ms + name ms"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " + ".join(
+        f"{e.key.split('<')[0].split('::')[-1].split('(')[0]} "
+        f"{e.self_device_time_total / 1e3:.4f} ms"
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
 
 
 def _run(cmd: list[str]) -> str:
@@ -733,6 +750,12 @@ def phase_wcsmssm(desc: dict) -> dict:
         times.append((_cuda_ms(lambda: crp_cuda.wcsmssm_batch(*args, **kw),
                                10),
                       _cuda_ms(lambda: crp_cuda.wcsmssm_ref(*args, **kw), 3)))
+        WA, WB, WC = got[:, :L, :L], got[:, L:, L:], got[:, :L, L:]
+        if not (torch.equal(WA, WA.transpose(1, 2))
+                and torch.equal(WB, WB.transpose(1, 2))
+                and torch.equal(got[:, L:, :L], WC.transpose(1, 2))):
+            raise AssertionError("wcsmssm: output not symmetric")
+        split = _kernel_split(lambda: crp_cuda.wcsmssm_batch(*args, **kw))
         # reads the valid SSM and CSM windows, writes the whole (2L, 2L)
         # affinity; ~10 operations (sums, products, a quotient, an exp)
         # a valid affinity cell
@@ -743,8 +766,10 @@ def phase_wcsmssm(desc: dict) -> dict:
     plain_ms = float(np.mean([t[1] for t in times]))
     _phase("wcsmssm", f"kernel within rtol 2e-5 / atol 2e-6 of plain on the "
            f"throughput tile's 2 x (64, {L}, {L}) stacks (K=1 and K=0 "
-           f"included): max abs err {worst_abs:.3g}, max rel err "
-           f"{worst_rel:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+           f"included), symmetric bit for bit: max abs err "
+           f"{worst_abs:.3g}, max rel err {worst_rel:.3g}; kernel {ms:.3f} "
+           f"ms ({split} of the last stack, by torch.profiler), plain "
+           f"{plain_ms:.3f} ms")
     return _kernel("wcsmssm", "knn.cu", "acoss_tpu/ops/crp_pallas.py:598",
                    worst_abs, ms, plain_ms,
                    (float(np.mean([b[0] for b in bounds])), bounds[0][1]))

@@ -1,6 +1,7 @@
-"""Time variants of the fused CRP and dmax kernels on one card, each built
-from a copy of `acoss_tpu_torch/csrc` with one constant changed or one
-phase removed, beside the sources as they are.
+"""Time variants of the fused CRP, dmax, qmax and WCSMSSM kernels on one
+card, each built from a copy of `acoss_tpu_torch/csrc` with one constant
+changed, one phase removed or (qmax) its row barrier replaced by hand-offs
+between warps, beside the sources as they are.
 
     python3 scripts/torch_kernel_variants.py [--out build/kernel_variants]
 
@@ -10,9 +11,12 @@ and called through ctypes with the C signatures of `_build.SIGNATURES`.
 For each it prints the mean device ms a launch (CUDA events) at the
 Serra09 main path's shapes: the fused CRP at B=64, L=512, d=12 and 13
 (random features, lengths 260..470), with the device time of each of its
-two kernels from `torch.profiler`, and dmax at B=128, L=512 on bench.py's
-CRP workload. Variants that keep the function are checked bit for bit
-against the plain versions; the diagnostic ones (a phase removed) are
+two kernels from `torch.profiler`; dmax and qmax at B=128, L=512 on
+bench.py's CRP workload; WCSMSSM at B=64, L=512 (random SSMs and CSM,
+lengths 260..470, K = trunc(0.095 (l1 + l2)), EarlySNF's budget), with
+the device time of its stats and out launches. Variants that keep the
+function are checked against the plain versions (bit for bit, WCSMSSM
+within rtol 2e-5 / atol 2e-6); the diagnostic ones (a phase removed) are
 not. Nothing under `csrc/` is modified.
 """
 
@@ -27,12 +31,11 @@ import sys
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.getcwd())
 
 from acoss_tpu_torch.ops import _build, alignment_cuda, crp_cuda  # noqa: E402
+from chip_smoke import _kernel_split  # noqa: E402
 
 # (name, [(text in csrc, its replacement)], whether it keeps the function)
 CRP_VARIANTS = [
@@ -42,7 +45,8 @@ CRP_VARIANTS = [
     ("strips of 8 columns",
      [("for (int cw = 16; cw", "for (int cw = 8; cw")], True),
     ("diagnostic: no row search",
-     [("const unsigned t = warp_kth(key, k);\n    if (lane == 0) tr[r] = t;",
+     [("const unsigned t = warp_kth(key, k, kMaxFiniteBits);\n"
+       "    if (lane == 0) tr[r] = t;",
        "if (lane == 0) tr[r] = key[0];")], False),
     ("diagnostic: no CSM",
      [("for (int j = threadIdx.x; j < ny; j += kThreads) {\n"
@@ -50,7 +54,7 @@ CRP_VARIANTS = [
        "for (int j = threadIdx.x; j < 0; j += kThreads) {\n"
        "    const float* yg")], False),
     ("diagnostic: no column search",
-     [("const unsigned t = warp_kth(key, k);\n"
+     [("const unsigned t = warp_kth(key, k, kMaxFiniteBits);\n"
        "    if (lane == 0) t_col[c] = t;",
        "if (lane == 0) t_col[c] = key[0];")], False),
 ]
@@ -67,8 +71,121 @@ DMAX_VARIANTS = [
        "                                          : fmaxf(m5 - gap, 0.0f);",
        "        const float v = es[2 + k] + e1[k];")], False),
 ]
-CRP_SOURCES = ("crp.cu",)
+# qmax without its block barrier a row: each warp hands its last two
+# values to the next warp through a ring of 4 slots, with an mbarrier each
+# way (full: written; empty: read), so that warps may run a row apart; the
+# stage of chunk c - 1 is refilled once every warp has arrived on its
+# `empty` barrier, by thread 0 at the end of chunk c
+QMAX_HANDOFF = [
+    ("__device__ __forceinline__ void mbar_init(",
+     "__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {\n"
+     "  asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\\n\"\n"
+     "               :: \"r\"(smem_addr(bar)) : \"memory\");\n"
+     "}\n\n"
+     "__device__ __forceinline__ void mbar_init("),
+    ("""  __shared__ uint64_t full[kStages];
+  // the last two D values of each warp's run, double-buffered by row
+  __shared__ float xch[2][kMaxBlock / 32][2];""",
+     """  __shared__ uint64_t full[kStages], empty[kStages];
+  __shared__ float xch[4][kMaxBlock / 32][2];
+  __shared__ uint64_t xfull[4][kMaxBlock / 32], xempty[4][kMaxBlock / 32];"""),
+    ("""      for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+      for (int c = 0; c < kStages && c < chunks; ++c)
+        issue_chunk(Sb + (size_t)(2 + c * R) * N,""",
+     """      const int nw = blockDim.x >> 5;
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], nw);
+      }
+      for (int s = 0; s < 4; ++s)
+        for (int w = 0; w < nw; ++w) {
+          mbar_init(&xfull[s][w], 1);
+          mbar_init(&xempty[s][w], 1);
+        }
+      asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+      for (int c = 0; c < kStages && c < chunks; ++c)
+        issue_chunk(Sb + (size_t)(2 + c * R) * N,"""),
+    ("""      if (lane == 31) {
+        xch[i & 1][warp][0] = d0[kCols - 2];
+        xch[i & 1][warp][1] = d0[kCols - 1];
+      }
+      // every thread has read row i (and, at a chunk's last row, the
+      // chunk), and the warps' last values are out
+      __syncthreads();
+      if (lane == 0 && warp > 0) {
+        nl[0] = xch[i & 1][warp - 1][0];
+        nl[1] = xch[i & 1][warp - 1][1];
+      }
+      if (threadIdx.x == 0) {
+        nl[0] = nl[1] = 0.0f;
+        // the chunk is consumed: its stage takes chunk c + kStages
+        const int cn = c + kStages;
+        if (r == R - 1 && cn < chunks)
+          issue_chunk(Sb + (size_t)(2 + cn * R) * N,
+                      Sb + (size_t)min(2 + (cn + 1) * R, m) * N,
+                      stages + s * sb, &full[s]);
+      }""",
+     """      const int nw = blockDim.x >> 5, t = i - 2;
+      const int slot = t % 4, use = t / 4;
+      if (warp + 1 < nw) {
+        if (use > 0) mbar_wait(&xempty[slot][warp], (use - 1) & 1);
+        if (lane == 31) {
+          xch[slot][warp][0] = d0[kCols - 2];
+          xch[slot][warp][1] = d0[kCols - 1];
+          mbar_arrive(&xfull[slot][warp]);
+        }
+      }
+      if (r == R - 1) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      if (warp > 0) {
+        mbar_wait(&xfull[slot][warp - 1], use & 1);
+        if (lane == 0) {
+          nl[0] = xch[slot][warp - 1][0];
+          nl[1] = xch[slot][warp - 1][1];
+          mbar_arrive(&xempty[slot][warp - 1]);
+        }
+      }
+      if (threadIdx.x == 0) {
+        nl[0] = nl[1] = 0.0f;
+        const int cn = c - 1 + kStages;
+        if (r == R - 1 && c >= 1 && cn < chunks) {
+          const int sp = (s + kStages - 1) % kStages;
+          mbar_wait(&empty[sp], ((c - 1) / kStages) & 1);
+          issue_chunk(Sb + (size_t)(2 + cn * R) * N,
+                      Sb + (size_t)min(2 + (cn + 1) * R, m) * N,
+                      stages + sp * sb, &full[sp]);
+        }
+      }"""),
+]
+QMAX_VARIANTS = [
+    ("as is", [], True),
+    ("warps hand off by mbarriers, no block barrier a row", QMAX_HANDOFF,
+     True),
+    ("8 columns a thread (2 warps a pair)",
+     [("int cols = 4;", "int cols = 8;")], True),
+    ("diagnostic: no cell arithmetic",
+     [("          const float x = (v & (0xFFu << (8 * e))) != 0u\n"
+       "                              ? pre + 1.0f\n"
+       "                              : fmaxf(pre - gap, 0.0f);",
+       "          const float x = p1 + (float)((v >> (8 * e)) & 1u);")],
+     False),
+]
+WCSMSSM_VARIANTS = [
+    ("as is", [], True),
+    ("stats bands of 8 lines",
+     [("for (int rb = 16; rb >= 8;", "for (int rb = 8; rb >= 8;")], True),
+    ("stats bands of 32 lines",
+     [("for (int rb = 16; rb >= 8;", "for (int rb = 32; rb >= 8;")], True),
+    ("diagnostic: no stats search",
+     [("const unsigned tk = warp_kth(key, k, kMaxFiniteUKey);",
+       "const unsigned tk = key[0];")], False),
+]
+CRP_SOURCES = ("crp.cu", "select.cuh")
 DMAX_SOURCES = ("alignment.cu",)
+WCSMSSM_SOURCES = ("knn.cu", "select.cuh")
 
 
 def _start_build(out: str, name: str, sources, subs):
@@ -90,7 +207,7 @@ def _start_build(out: str, name: str, sources, subs):
         raise RuntimeError(f"{name}: not in the sources: {missing}")
     lib = os.path.join(d, "lib.so")
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-           *[os.path.join(d, f) for f in sources]]
+           *[os.path.join(d, f) for f in sources if f.endswith(".cu")]]
     return lib, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)
 
 
@@ -116,6 +233,53 @@ def _ms(fn, reps: int = 30) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _aligner(builds, variants, kind: str, entry: str, S, m, n, want):
+    """Check and time each variant of an aligner kernel at B=128."""
+    dev, B, L = S.device, S.shape[0], S.shape[2]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, _, exact in variants:
+        fn = _load(*builds[kind, name], entry)
+
+        def run():
+            out = torch.empty(B, dtype=torch.float32, device=dev)
+            _build.check(fn(S.data_ptr(), m.data_ptr(), n.data_ptr(), B, L,
+                            L, 0.5, out.data_ptr(), dev.index, stream), name)
+            return out
+
+        if exact and not torch.equal(run(), want):
+            raise AssertionError(f"{kind} {name}: != plain")
+        print(f"{kind}, {name}: {_ms(run):.4f} ms", flush=True)
+
+
+def _wcsmssm(builds, dev) -> None:
+    """Check and time each WCSMSSM variant at B=64, L=512, with the split
+    of its two launches."""
+    rng = np.random.default_rng(2)
+    B, L = 64, 512
+    A, Bm, C = rng.random((3, B, L, L)).astype(np.float32)
+    l1, l2 = (rng.integers(260, 471, B).astype(np.int32) for _ in "ab")
+    K = (np.float32(0.095) * (l1 + l2).astype(np.float32)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (A, Bm, C, l1, l2, K)]
+    want = crp_cuda.wcsmssm_ref(*args)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, _, exact in WCSMSSM_VARIANTS:
+        fn = _load(*builds["wcsmssm", name], "acoss_wcsmssm")
+
+        def run():
+            stats = torch.empty((B, 4, L), dtype=torch.float32, device=dev)
+            W = torch.empty((B, 2 * L, 2 * L), dtype=torch.float32,
+                            device=dev)
+            _build.check(fn(*(a.data_ptr() for a in args), B, L, 0.5,
+                            stats.data_ptr(), W.data_ptr(), dev.index,
+                            stream), name)
+            return W
+
+        if exact:
+            torch.testing.assert_close(run(), want, rtol=2e-5, atol=2e-6)
+        print(f"wcsmssm, {name}: {_ms(run):.4f} ms; by kernel: "
+              f"{_kernel_split(run)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/kernel_variants")
@@ -128,6 +292,12 @@ def main() -> int:
     builds.update({("dmax", n): _start_build(args.out, f"dmax{i}",
                                              DMAX_SOURCES, s)
                    for i, (n, s, _) in enumerate(DMAX_VARIANTS)})
+    builds.update({("qmax", n): _start_build(args.out, f"qmax{i}",
+                                             DMAX_SOURCES, s)
+                   for i, (n, s, _) in enumerate(QMAX_VARIANTS)})
+    builds.update({("wcsmssm", n): _start_build(args.out, f"wcsmssm{i}",
+                                                WCSMSSM_SOURCES, s)
+                   for i, (n, s, _) in enumerate(WCSMSSM_VARIANTS)})
     dev = torch.device("cuda", torch.cuda.current_device())
     stream = torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(1)
@@ -157,18 +327,10 @@ def main() -> int:
                     fused(*a), crp_cuda.fused_binary_crp_ref(*a, 0.095, 9)[0]):
                 raise AssertionError(f"fused CRP {name}: != plain")
             times.append(_ms(lambda: fused(*a)))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fused(*crp_in[0])
-            torch.cuda.synchronize()
-        split = ", ".join(
-            f"{e.key.split('<')[0].split('::')[-1]} "
-            f"{e.self_device_time_total / 1e3:.4f}"
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0)
+        split = _kernel_split(lambda: fused(*crp_in[0]))
         print(f"fused CRP, {name}: d=12 {times[0]:.4f} ms, d=13 "
               f"{times[1]:.4f} ms, mean {np.mean(times):.4f} ms; d=12 by "
-              f"kernel (ms): {split}", flush=True)
+              f"kernel: {split}", flush=True)
     rng = np.random.default_rng(0)
     m = rng.integers(320, L + 1, 128).astype(np.int32)
     n = rng.integers(320, L + 1, 128).astype(np.int32)
@@ -176,20 +338,11 @@ def main() -> int:
     for b in range(128):
         S[b, :m[b], :n[b]] = rng.random((m[b], n[b])) < 0.095
     S, m, n = (torch.from_numpy(a).to(dev) for a in (S, m, n))
-    want = alignment_cuda.dmax_batch_ref(S, m, n)
-    for name, _, exact in DMAX_VARIANTS:
-        fn = _load(*builds["dmax", name], "acoss_dmax")
-
-        def dmax():
-            out = torch.empty(128, dtype=torch.float32, device=dev)
-            _build.check(fn(S.data_ptr(), m.data_ptr(), n.data_ptr(), 128,
-                            L, L, 0.5, out.data_ptr(), dev.index, stream),
-                         name)
-            return out
-
-        if exact and not torch.equal(dmax(), want):
-            raise AssertionError(f"dmax {name}: != plain")
-        print(f"dmax, {name}: {_ms(dmax):.4f} ms", flush=True)
+    _aligner(builds, DMAX_VARIANTS, "dmax", "acoss_dmax", S, m, n,
+             alignment_cuda.dmax_batch_ref(S, m, n))
+    _aligner(builds, QMAX_VARIANTS, "qmax", "acoss_qmax", S, m, n,
+             alignment_cuda.qmax_batch_ref(S, m, n))
+    _wcsmssm(builds, dev)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -52,14 +52,15 @@ ALIGNERS = {
 }
 
 
-@pytest.mark.parametrize("L", [100, 512, 576, 1024])
+@pytest.mark.parametrize("L", [100, 103, 512, 576, 1024])
 @pytest.mark.parametrize("name", list(ALIGNERS))
 def test_aligner_kernel_bit_equal_to_plain(dev, name, L):
     """At the Serra09 (512) and EarlyFusion (576) widths, at 100 (a row
-    that is not a whole number of dmax's 16-byte copies or 4-column runs
-    of a warp) and 1024 (chunks of CRP rows that wrap the stage ring more
-    often), with degenerate pairs and a pair whose rows 0 and 1 are all
-    matches."""
+    that is not a whole number of the 16-byte copies or 4-column runs of
+    a warp), 103 (rows that are not 4-byte aligned in the stages: the
+    byte-funnel reads of qmax and dmax) and 1024 (chunks of CRP rows that
+    wrap the stage ring more often), with degenerate pairs and a pair
+    whose rows 0 and 1 are all matches."""
     S, m, n = (torch.from_numpy(a).to(dev) for a in _crps(0, L=L))
     S[5, :2, :n[5]] = 1
     wname, rname, kw = ALIGNERS[name]
@@ -71,6 +72,26 @@ def test_aligner_kernel_bit_equal_to_plain(dev, name, L):
     want = getattr(alignment_cuda, rname)(S, m, n, **kw)
     assert torch.equal(got, want)
     assert float(got[5:].min()) > 0
+
+
+@pytest.mark.parametrize("N", [2304, 2101])
+@pytest.mark.parametrize("name", ["qmax", "dmax"])
+def test_register_aligner_wide_rows_bit_equal_to_plain(dev, name, N):
+    """Rows past 2048 columns, where qmax and dmax take 8 columns a
+    thread (288 and 263 threads), aligned and not; a negative gap."""
+    rng = np.random.default_rng(N)
+    B, M = 6, 160
+    m = rng.integers(100, M + 1, B).astype(np.int32)
+    n = rng.integers(N * 5 // 8, N + 1, B).astype(np.int32)
+    m[:2], n[:2] = [M, 2], [N, N]
+    S = (rng.random((B, M, N)) < 0.095).astype(np.uint8)
+    S, m, n = (torch.from_numpy(a).to(dev) for a in (S, m, n))
+    wname, rname, _ = ALIGNERS[name]
+    for gap in (0.5, -0.3):
+        got = getattr(alignment_cuda, wname)(S, m, n, gap=gap)
+        want = getattr(alignment_cuda, rname)(S, m, n, gap=gap)
+        assert torch.equal(got, want), gap
+        assert float(got[0]) > 0 and float(got[1]) == 0
 
 
 @pytest.mark.parametrize("L,ties", [(100, False), (512, False),
@@ -150,18 +171,35 @@ def test_knn_mask_kernel_bit_equal_to_plain(dev, largest):
     assert torch.equal(torch.signbit(got), torch.signbit(want))
 
 
-def test_wcsmssm_kernel_value_equal_to_plain(dev):
-    rng = np.random.default_rng(22)
-    B, L = 4, 512
+@pytest.mark.parametrize("L,ties", [(100, False), (512, False),
+                                    (1024, False), (512, True)])
+def test_wcsmssm_kernel_value_equal_to_plain(dev, L, ties):
+    """Within rtol 2e-5 / atol 2e-6 of plain at L = 100 (tiles and lines
+    cut short), 512 and 1024 (32 keys a lane), and on integer-valued
+    SSMs and CSM (many values tie at the k-th); K = 1 and K = 0, a zero
+    length, a length of 1, l1 != l2. W_SSMA and W_SSMB are symmetric and
+    the lower-left quadrant is the upper-right's transpose, bit for bit."""
+    rng = np.random.default_rng(22 + L + ties)
+    B = 6
     A, Bm, C = rng.random((3, B, L, L)).astype(np.float32)
-    l1 = np.array([512, 400, 12, 300], np.int32)
-    l2 = np.array([512, 450, 15, 2], np.int32)
+    if ties:
+        A, Bm, C = (np.floor(x * 8) for x in (A, Bm, C))
+    l1 = rng.integers(L * 5 // 8, L + 1, B).astype(np.int32)
+    l2 = rng.integers(L * 5 // 8, L + 1, B).astype(np.int32)
+    l1[:4], l2[:4] = [L, 0, 1, L - 3], [L, L // 2, L - 1, 2]
     K = (np.float32(0.095) * (l1 + l2).astype(np.float32)).astype(np.int32)
-    K[0] = 1                                     # a tiny K
+    K[0], K[4] = 1, 0
     args = [torch.from_numpy(a).to(dev) for a in (A, Bm, C, l1, l2, K)]
+    before = crp_cuda.wcsmssm_batch.launches
     got = crp_cuda.wcsmssm_batch(*args)
+    torch.cuda.synchronize()
+    assert crp_cuda.wcsmssm_batch.launches == before + 1
     want = crp_cuda.wcsmssm_ref(*args)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    WA, WB = got[:, :L, :L], got[:, L:, L:]
+    assert torch.equal(WA, WA.transpose(1, 2))
+    assert torch.equal(WB, WB.transpose(1, 2))
+    assert torch.equal(got[:, L:, :L], got[:, :L, L:].transpose(1, 2))
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])

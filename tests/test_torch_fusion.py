@@ -236,6 +236,29 @@ def test_wcsmssm_ref_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-6)
 
 
+@pytest.mark.parametrize("L", [24, 40])
+def test_wcsmssm_ref_symmetries_and_pallas_interpret(L):
+    """The exact symmetries the kernel's tiled output writes once and
+    mirrors: W_SSMA and W_SSMB equal their transposes and the lower-left
+    quadrant the transpose of the upper-right one, bit for bit; and the
+    JAX bound (rtol 2e-5, atol 2e-6) on ragged lengths, K = 0 and 1."""
+    rng = np.random.default_rng(12 + L)
+    B = 5
+    A, Bm, C = rng.random((3, B, L, L)).astype(np.float32)
+    l1 = np.array([L, L - 5, 7, 1, 0], np.int32)
+    l2 = np.array([L - 3, L, 2, L // 2, L], np.int32)
+    K = (np.float32(0.095) * (l1 + l2).astype(np.float32)).astype(np.int32)
+    K[0], K[1] = 1, 0
+    got = crp_cuda.wcsmssm_ref(*(_t(a) for a in (A, Bm, C, l1, l2, K)))
+    WA, WB = got[:, :L, :L], got[:, L:, L:]
+    assert torch.equal(WA, WA.transpose(1, 2))
+    assert torch.equal(WB, WB.transpose(1, 2))
+    assert torch.equal(got[:, L:, :L], got[:, :L, L:].transpose(1, 2))
+    want = np.asarray(jax_wcsmssm(A, Bm, C, l1, l2, K, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-6)
+    assert got[:4].sum() > 0 and (got[4, :L] == 0).all()
+
+
 def test_wrappers_on_cpu_are_the_plain_versions():
     """A CPU tensor takes the plain version and counts no launch."""
     rng = np.random.default_rng(11)
