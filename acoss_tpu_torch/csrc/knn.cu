@@ -16,22 +16,40 @@
 //     neighbourhood means are summed in another order).
 //
 // What bounds them on the H100: every output needs a line statistic (the
-// k-th value of a row or column of 512..1024 floats), found by 32
-// dependent count-and-halve passes. The TPU kernels keep whole (L, L)
+// k-th value of a row or column of 512..1024 floats), an exact search of
+// dependent count-and-halve steps. The TPU kernels keep whole (L, L)
 // matrices in VMEM and search all lines of a pair at once; a block here
 // has 227 KB of shared memory, and one (1024, 1024) fp32 matrix is 4 MB.
-// The binarizer and the kNN mask are one block per line: the line's keys
-// go to shared memory once (at most 8 KB), each pass is a block-wide count
-// with one barrier, and the many independent lines (65k..262k blocks a
-// call) keep the SMs busy while each one waits on its barriers; a column
-// line is a strided read.
-// WCSMSSM is one warp per line with its keys in registers (`warp_kth`:
-// warp reductions, no barrier, an exact early stop), the column lines
-// staged as coalesced row segments, then an output pass in 32 x 32 tiles
-// that computes each affinity once and stores it with 128-bit stores to
-// its cell and to the mirror cell (W_SSMA and W_SSMB are symmetric, the
-// lower-left quadrant is the upper-right's transpose); its bound is the
-// (B, 2L, 2L) output it writes.
+// So a warp owns a line, with its keys in registers (L/32 a lane), and
+// finds its k-th smallest with `warp_kth` (warp reductions, no barrier, a
+// bracket from the lanes' smallest keys, an exact early stop); the bytes
+// each kernel must move then set its pace:
+//  1. The binarizer is two launches. The row launch reads each valid row
+//     once, coalesced, and writes its threshold. The strip launch stages a
+//     strip of 16 columns of the valid rows in shared memory as coalesced
+//     row segments (float4 loads where L % 4 == 0; odd row stride: a warp
+//     reading a column hits 32 banks), searches its columns from there and
+//     writes the strip of the CRP from the staged keys, 4 bytes a store. D
+//     is read twice and never strided; strips outside the valid block
+//     write zeros and read nothing. Those two reads and the CRP write are
+//     its design floor; the searches (on the row launch's path: it does
+//     nothing else) cost about as much again.
+//  2. The kNN mask is one launch: a warp reads its row once, coalesced,
+//     keeps the keys in registers, finds the k-th with a bracket from each
+//     lane's 4 smallest keys (k <= 128: EarlySNF's k of 50..95 at
+//     n = 1024), and writes the row from the keys, which give back W's
+//     bits (a bit a key keeps the sign of a zero). Its bound is W read and
+//     V written once; float4 loads and stores measured no faster.
+// Lines longer than registers hold (past 32 x 192 = 6,144) take the first
+// design instead: one block a line, the line's keys in shared memory and
+// `block_kth_key` (32 passes, a block barrier each; a binarizer column is
+// a strided read and the mask launch reads D again).
+//  3. WCSMSSM is one warp per line with its keys in registers (`warp_kth`),
+// the column lines staged as coalesced row segments, then an output pass in
+// 32 x 32 tiles that computes each affinity once and stores it with 128-bit
+// stores to its cell and to the mirror cell (W_SSMA and W_SSMB are
+// symmetric, the lower-left quadrant is the upper-right's transpose); its
+// bound is the (B, 2L, 2L) output it writes.
 // The TPU-only parts (two pairs a grid step, the `dual` layout, VMEM slab
 // sizing, custom_vmap) have no counterpart: a launch takes a flat batch.
 
@@ -58,17 +76,167 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // fusion._BIG: the stand-in distance of padded cells
 constexpr float kBig = 1e30f;
+constexpr int kLoads = 8;             // loads in flight a thread (staging)
+constexpr int kMaxKeysPerLane = 192;  // register lines of up to 6,144
+constexpr size_t kMaxSmem = 227 * 1024;
+// the kNN mask's bracket: each lane's 4 smallest keys bound k <= 128
+constexpr int kMaskBracket = 4;
+// the key of +inf: the kNN mask's answer always exists (1 <= k <= n)
+constexpr unsigned kInfUKey = 0xFF800000u;
 
 // round(kappa * len) in fp32, half to even (jnp.round / torch.round)
 __device__ __forceinline__ float round_k(float kappa, int len) {
   return rintf(__fmul_rn(kappa, (float)len));
 }
 
+size_t strip_bytes(int L, int cw) {
+  return sizeof(float) * (size_t)L * (cw + 1);
+}
+
 // ---------------------------------------------------------------- 1 ------
-// grid (L, B, 2): blockIdx.z == 0 searches row blockIdx.x, 1 the column.
-// A row keeps round(kappa * l2) neighbours among its l2 valid cells, a
-// column round(kappa * l1) among its l1 (at least 1 each; a pair whose
-// rounded count is 0 is zeroed by the mask kernel).
+// grid (ceil(L / kWarps), B), one warp a row, K keys a lane (L <= 32 K):
+// row i < l1 keeps round(kappa * l2) neighbours among its l2 valid cells
+// (at least 1). Its threshold goes to thr[b, 0, i]; kMaxFiniteUKey for a
+// row outside the valid block.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+binarize_row_kernel(const float* __restrict__ D, const int* __restrict__ l1,
+                    const int* __restrict__ l2, int L, float kappa,
+                    unsigned* __restrict__ thr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, i = blockIdx.x * kWarps + warp;
+  if (i >= L) return;
+  const int r1 = l1[b], r2 = l2[b];
+  unsigned* out = thr + (size_t)b * 2 * L + i;
+  if (i >= r1) {
+    if (lane == 0) *out = kMaxFiniteUKey;
+    return;
+  }
+  // masked cells are above every threshold: only the valid prefix counts
+  const int n = min(max(r2, 0), L);
+  const float* Dr = D + ((size_t)b * L + i) * L;
+  unsigned key[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int j = lane + 32 * u;
+    key[u] = j < n ? float_ukey(__ldg(Dr + j)) : kNoKey;
+  }
+  const int k = (int)fmaxf(round_k(kappa, r2), 1.0f);
+  const unsigned t = warp_kth(key, k, kMaxFiniteUKey);
+  if (lane == 0) *out = t;
+}
+
+// grid (ceil(L / cw), B), one block a strip of cw columns (a power of
+// two), every row: stages the keys of the strip's cells of the valid rows,
+// a warp finds each valid column's threshold (round(kappa * l1) of its l1
+// cells, at least 1), then S[i, j] = key <= t_row[i] && key <= t_col[j]
+// inside (l1, l2), else 0; all zero for a pair whose rounded neighbour
+// count is 0. `vec`: L % 4 == 0, D 16-byte and S 4-byte aligned, so a
+// thread loads and stores 4 cells at once.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+binarize_strip_kernel(const float* __restrict__ D,
+                      const unsigned* __restrict__ thr,
+                      const int* __restrict__ l1, const int* __restrict__ l2,
+                      int L, int cw, float kappa, int vec,
+                      uint8_t* __restrict__ S) {
+  extern __shared__ unsigned skeys[];   // (rows < l1, cw + 1)
+  __shared__ unsigned t_col[32];
+  const int b = blockIdx.y, q0 = blockIdx.x * cw, cs = cw + 1;
+  const int cw_log2 = __ffs(cw) - 1, qw_log2 = cw_log2 - 2;  // 4-cell words
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r1 = l1[b], r2 = l2[b];
+  const int m = min(max(r1, 0), L), n = min(max(r2, 0), L);
+  const bool any = round_k(kappa, r2) > 0.0f && round_k(kappa, r1) > 0.0f;
+  const int cols = min(cw, L - q0);                // the strip's columns
+  const int vc = any ? min(cols, n - q0) : 0;      // those with keys
+  uint8_t* Sb = S + (size_t)b * L * L + q0;
+  if (vc > 0) {
+    const float* Db = D + (size_t)b * L * L + q0;
+    // coalesced row segments, kLoads loads in flight a thread; with vec a
+    // load takes 4 cells (those past vc are never read)
+    const int words = m << qw_log2;
+    for (int t0 = threadIdx.x; vec && t0 < words; t0 += kLoads * kThreads) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int t = t0 + u * kThreads, i = t >> qw_log2;
+        const int c = (t & ((1 << qw_log2) - 1)) * 4;
+        v[u] = t < words && c < vc
+                   ? __ldg(reinterpret_cast<const float4*>(
+                         Db + (size_t)i * L + c))
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int t = t0 + u * kThreads, i = t >> qw_log2;
+        const int c = (t & ((1 << qw_log2) - 1)) * 4;
+        if (t < words && c < vc) {
+          unsigned* s = skeys + i * cs + c;
+          s[0] = float_ukey(v[u].x);
+          s[1] = float_ukey(v[u].y);
+          s[2] = float_ukey(v[u].z);
+          s[3] = float_ukey(v[u].w);
+        }
+      }
+    }
+    for (int t0 = threadIdx.x; !vec && t0 < m * cw;
+         t0 += kLoads * kThreads) {
+      float v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int t = t0 + u * kThreads, i = t >> cw_log2, c = t & (cw - 1);
+        v[u] = t < m * cw && c < vc ? __ldg(Db + (size_t)i * L + c) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int t = t0 + u * kThreads, i = t >> cw_log2, c = t & (cw - 1);
+        if (t < m * cw && c < vc) skeys[i * cs + c] = float_ukey(v[u]);
+      }
+    }
+    __syncthreads();
+    const int k = (int)fmaxf(round_k(kappa, r1), 1.0f);
+    for (int c = warp; c < vc; c += kWarps) {
+      unsigned key[K];
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        const int i = lane + 32 * u;
+        key[u] = i < m ? skeys[i * cs + c] : kNoKey;
+      }
+      const unsigned t = warp_kth(key, k, kMaxFiniteUKey);
+      if (lane == 0) t_col[c] = t;
+    }
+    __syncthreads();
+  }
+  const unsigned* tr = thr + (size_t)b * 2 * L;
+  // one cell of row i, column c of the strip
+  auto cell = [&](int i, int c) -> unsigned {
+    if (i >= m || c >= vc) return 0u;
+    const unsigned v = skeys[i * cs + c];
+    return v <= __ldg(tr + i) && v <= t_col[c];
+  };
+  if (vec) {
+    // cols is a multiple of 4 (L and q0 are)
+    for (int t = threadIdx.x; t < (L << qw_log2); t += kThreads) {
+      const int i = t >> qw_log2, c = (t & ((1 << qw_log2) - 1)) * 4;
+      if (c >= cols) continue;
+      unsigned w = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w |= cell(i, c + e) << (8 * e);
+      *reinterpret_cast<unsigned*>(Sb + (size_t)i * L + c) = w;
+    }
+  } else {
+    for (int t = threadIdx.x; t < L * cw; t += kThreads) {
+      const int i = t >> cw_log2, c = t & (cw - 1);
+      if (c < cols) Sb[(size_t)i * L + c] = (uint8_t)cell(i, c);
+    }
+  }
+}
+
+// Lines longer than registers hold: grid (L, B, 2), blockIdx.z == 0
+// searches row blockIdx.x, 1 the column, one block a line with its keys in
+// shared memory (signed keys; a line outside the valid block gets
+// kMaxFiniteBits); then binarize_mask_kernel reads D again.
 __global__ void __launch_bounds__(kThreads)
 binarize_threshold_kernel(const float* __restrict__ D,
                           const int* __restrict__ l1,
@@ -121,9 +289,58 @@ binarize_mask_kernel(const float* __restrict__ D, const int* __restrict__ thr,
 }
 
 // ---------------------------------------------------------------- 2 ------
-// grid (n, B): one block per row. Keys of -W (largest) or W (smallest);
-// the row keeps the cells whose key is <= its k-th smallest, k clamped to
-// [1, n], and writes W there and +0.0 elsewhere.
+// grid (ceil(n / kWarps), B), one warp a row, K keys a lane (n <= 32 K).
+// Keys of -W (largest) or W (smallest); the row keeps the cells whose key
+// is <= its k-th smallest, k clamped to [1, n], and writes W there and
+// +0.0 elsewhere.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+knn_mask_row_kernel(const float* __restrict__ W, const int* __restrict__ k,
+                    int n, int largest, float* __restrict__ V) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, i = blockIdx.x * kWarps + warp;
+  if (i >= n) return;
+  const size_t row = ((size_t)b * n + i) * n;
+  const float* Wr = W + row;
+  float* Vr = V + row;
+  // W's bits first, every load in flight
+  unsigned key[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int j = lane + 32 * u;
+    key[u] = j < n ? __float_as_uint(__ldg(Wr + j)) : 0u;
+  }
+  // then the keys; -0.0 and +0.0 share a key, so a bit a key keeps which
+  // one W held
+  const unsigned flip = largest ? 0x80000000u : 0u;
+  unsigned negz[(K + 31) / 32];
+#pragma unroll
+  for (int w = 0; w < (K + 31) / 32; ++w) negz[w] = 0u;
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    if (lane + 32 * u < n) {
+      if (key[u] == 0x80000000u) negz[u / 32] |= 1u << (u % 32);
+      key[u] = float_ukey(__uint_as_float(key[u] ^ flip));
+    } else {
+      key[u] = kNoKey;
+    }
+  }
+  const int kk = min(max(k[b], 1), n);
+  const unsigned t = warp_kth<K, kMaskBracket>(key, kk, kInfUKey);
+  // W's value back from its key (exact but for the sign of a zero)
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int j = lane + 32 * u;
+    if (j < n) {
+      unsigned r = __float_as_uint(ukey_float(key[u])) ^ flip;
+      if ((r << 1) == 0u) r = ((negz[u / 32] >> (u % 32)) & 1u) << 31;
+      Vr[j] = key[u] <= t ? __uint_as_float(r) : 0.0f;
+    }
+  }
+}
+
+// Lines longer than registers hold: grid (n, B), one block a row, its keys
+// in shared memory, searched by `block_kth_key`; reads W twice.
 __global__ void __launch_bounds__(kThreads)
 knn_mask_kernel(const float* __restrict__ W, const int* __restrict__ k,
                 int n, int largest, float* __restrict__ V) {
@@ -157,17 +374,11 @@ __device__ __forceinline__ void split_k(int K, int m, int n, int* k1,
   *k2 = K - *k1;
 }
 
-constexpr int kLoads = 8;             // loads in flight a thread (staging)
-constexpr int kMaxKeysPerLane = 192;  // stats lines of up to 6,144
 constexpr int kTile = 32;             // the out kernel's square tiles
-constexpr size_t kMaxSmem = 227 * 1024;
 
-size_t strip_bytes(int L, int rb) {
-  return sizeof(float) * (size_t)L * (rb + 1);
-}
-
-// Lines a stats block takes: the widest band whose column strip fits a
-// block's shared memory; 0 when none does.
+// Lines a WCSMSSM stats block or a binarizer strip block takes: the
+// widest band (16 or 8) whose column strip fits a block's shared memory;
+// 0 when none does.
 int band_lines(int L) {
   for (int rb = 16; rb >= 8; rb /= 2)
     if (strip_bytes(L, rb) <= kMaxSmem) return rb;
@@ -411,6 +622,26 @@ cudaError_t smem_limit(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
+// The binarizer's register design: the row launch, then the strip launch.
+template <int K>
+cudaError_t binarize_lines(const float* D, const int* l1, const int* l2,
+                           int B, int L, float kappa, unsigned* thr,
+                           uint8_t* S, cudaStream_t stream) {
+  const int cw = band_lines(L);
+  const size_t smem = strip_bytes(L, cw);
+  cudaError_t err = smem_limit((const void*)binarize_strip_kernel<K>, smem);
+  if (err != cudaSuccess) return err;
+  binarize_row_kernel<K><<<dim3((L + kWarps - 1) / kWarps, B), kThreads, 0,
+                           stream>>>(D, l1, l2, L, kappa, thr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int vec = L % 4 == 0 && ((uintptr_t)D & 15) == 0 &&
+                  ((uintptr_t)S & 3) == 0;
+  binarize_strip_kernel<K><<<dim3((L + cw - 1) / cw, B), kThreads, smem,
+                             stream>>>(D, thr, l1, l2, L, cw, kappa, vec, S);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -422,6 +653,15 @@ int acoss_binarize(const float* D, const int* l1, const int* l2, int B,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || L == 0) return (int)cudaGetLastError();
+  // keys per lane: the first that covers a line of L (16 up to L = 512)
+  const int kpl = (L + 31) / 32;
+  if (kpl <= kMaxKeysPerLane) {
+    auto run = kpl <= 16   ? binarize_lines<16>
+               : kpl <= 32 ? binarize_lines<32>
+               : kpl <= 64 ? binarize_lines<64>
+                           : binarize_lines<kMaxKeysPerLane>;
+    return (int)run(D, l1, l2, B, L, kappa, (unsigned*)thr, S, stream);
+  }
   const size_t smem = (size_t)L * sizeof(int);
   err = smem_limit((const void*)binarize_threshold_kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -440,6 +680,16 @@ int acoss_knn_mask(const float* W, const int* k, int B, int n, int largest,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || n == 0) return (int)cudaGetLastError();
+  const int kpl = (n + 31) / 32;
+  if (kpl <= kMaxKeysPerLane) {
+    auto kernel = kpl <= 16   ? knn_mask_row_kernel<16>
+                  : kpl <= 32 ? knn_mask_row_kernel<32>
+                  : kpl <= 64 ? knn_mask_row_kernel<64>
+                              : knn_mask_row_kernel<kMaxKeysPerLane>;
+    kernel<<<dim3((n + kWarps - 1) / kWarps, B), kThreads, 0, stream>>>(
+        W, k, n, largest, V);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)n * sizeof(int);
   err = smem_limit((const void*)knn_mask_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -76,29 +76,39 @@ __device__ int block_kth_key(const int* line, int n, int k, int* red) {
 }
 
 // The exact k-th smallest (k >= 1) of a warp's unsigned monotone keys
-// (lane l holds keys l, l + 32, ...; kNoKey for none), clamped to `top`:
-// the smallest t <= top with count(key <= t) >= k, else top. Bisection
-// between the smallest key and a bound from the lanes' smallest keys; once
-// a midpoint has exactly k keys at or below it, the answer is the largest
-// of those, so the search stops there. Same value in every lane.
-template <int K>
+// (kNoKey for none; which lane holds which key does not matter), clamped
+// to `top`: the smallest t <= top with count(key <= t) >= k, else top.
+// Bisection between the smallest key and a bound from the lanes' J
+// smallest keys; once a midpoint has exactly k keys at or below it, the
+// answer is the largest of those, so the search stops there. Same value
+// in every lane.
+template <int K, int J = 2>
 __device__ __forceinline__ unsigned warp_kth(const unsigned (&key)[K], int k,
                                              unsigned top) {
   constexpr unsigned kFull = 0xffffffffu;
-  // the two smallest keys of each lane: at least 32 (64) keys of the warp
-  // are <= the largest of the lanes' smallest (second smallest), so for
-  // k <= 32 (64) the answer is at most that
-  unsigned m1 = kNoKey, m2 = kNoKey;
+  // the J smallest keys of each lane, ascending: at least 32 j keys of the
+  // warp are <= the largest over the lanes of their j-th smallest, so for
+  // k <= 32 j the answer is at most that
+  unsigned m[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) m[j] = kNoKey;
 #pragma unroll
   for (int t = 0; t < K; ++t) {
-    m2 = min(m2, max(m1, key[t]));
-    m1 = min(m1, key[t]);
+    unsigned x = key[t];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const unsigned y = max(m[j], x);
+      m[j] = min(m[j], x);
+      x = y;
+    }
   }
-  unsigned lo = min(__reduce_min_sync(kFull, m1), top);
-  unsigned hi = k <= 32   ? __reduce_max_sync(kFull, m1)
-                : k <= 64 ? __reduce_max_sync(kFull, m2)
-                          : top;
-  hi = min(hi, top);
+  const int jk = (k + 31) / 32;
+  unsigned mj = top;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (jk == j + 1) mj = m[j];
+  unsigned lo = min(__reduce_min_sync(kFull, m[0]), top);
+  unsigned hi = min(__reduce_max_sync(kFull, mj), top);
   while (lo < hi) {
     const unsigned mid = lo + (hi - lo) / 2;
     int cnt = 0;

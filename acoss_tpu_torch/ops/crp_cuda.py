@@ -169,6 +169,13 @@ def _check_square(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
+#: The longest lines the binarizer and the kNN mask search with a warp a
+#: line, keys in registers (at most 192 a lane); longer lines, up to
+#: `_build.MAX_SMEM / 4`, take a block a line with the keys in shared
+#: memory. The C entry points dispatch on the shape.
+SELECT_REGISTER_MAX_L = 32 * 192
+
+
 def _check_line_smem(L: int, bytes_per_elem: int) -> None:
     if L * bytes_per_elem > _build.MAX_SMEM:
         raise ValueError(f"lines of {L} need {L * bytes_per_elem} bytes of "

@@ -643,6 +643,19 @@ def _tile(desc: dict):
             {k: v[0:8] for k, v in desc.items()})
 
 
+def _long_lines(dev, seed: int = 0):
+    """(2, L, L) float32 lines 2,048 past the register design's range
+    (`crp_cuda.SELECT_REGISTER_MAX_L`), which take the block-a-line
+    kernels: uniform [0, 1) with a fifth of the cells tied at 0.25."""
+    from acoss_tpu_torch.ops import crp_cuda
+
+    B, L = 2, crp_cuda.SELECT_REGISTER_MAX_L + 2048
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.rand((B, L, L), generator=g, device=dev)
+    X[torch.rand((B, L, L), generator=g, device=dev) < 0.2] = 0.25
+    return X
+
+
 def phase_binarize(desc: dict) -> dict:
     from acoss_tpu_torch.benchmarking.algorithms import early_snf
     from acoss_tpu_torch.ops import crp_cuda
@@ -666,27 +679,48 @@ def phase_binarize(desc: dict) -> dict:
     Dx = torch.cat([D, ex])
     l1x = torch.cat([l1, ln[:, 0]])
     l2x = torch.cat([l2, ln[:, 1]])
-    got = crp_cuda.binarize_matrix_batch(Dx, l1x, l2x, KAPPA)
-    want = crp_cuda.binarize_matrix_ref(Dx, l1x, l2x, KAPPA)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"binarize kernel != plain: "
-                             f"{int((got != want).sum())} cells differ")
-    if int(got[:256].sum()) == 0 or int(got[258:].sum()) != 0:
-        raise AssertionError("binarize: implausible CRPs")
+    # lines past the register range (negated, so the keys are signed), and
+    # an odd width (byte stores)
+    Dl = -_long_lines(D.device)
+    Ll = Dl.shape[-1]
+    lnl = torch.tensor([[Ll, Ll - 191], [Ll - 1000, Ll]], dtype=torch.int32,
+                       device=D.device)
+    Do = Dx[:8, :L - 3, :L - 3].contiguous()
+    cases = [("tile + degenerate", Dx, l1x, l2x),
+             (f"long lines L={Ll}", Dl, lnl[:, 0].contiguous(),
+              lnl[:, 1].contiguous()),
+             (f"odd width L={L - 3}", Do, l1x[:8].clamp_max(L - 3),
+              l2x[:8].clamp_max(L - 3))]
+    for what, Dc, a, b in cases:
+        got = crp_cuda.binarize_matrix_batch(Dc, a, b, KAPPA)
+        want = crp_cuda.binarize_matrix_ref(Dc, a, b, KAPPA)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"binarize kernel != plain ({what}): "
+                                 f"{int((got != want).sum())} cells differ")
+        if int(got.sum()) == 0:
+            raise AssertionError(f"binarize: implausible CRPs ({what})")
+        if what.startswith("tile"):
+            err = (got.int() - want.int()).abs().max()
+            if int(got[:256].sum()) == 0 or int(got[258:].sum()) != 0:
+                raise AssertionError("binarize: implausible CRPs")
+    del Dl, got, want
     ms = _cuda_ms(lambda: crp_cuda.binarize_matrix_batch(D, l1, l2, KAPPA),
                   10)
     plain_ms = _cuda_ms(lambda: crp_cuda.binarize_matrix_ref(D, l1, l2,
                                                              KAPPA), 3)
+    split = _kernel_split(lambda: crp_cuda.binarize_matrix_batch(
+        D, l1, l2, KAPPA))
     _phase("binarize", f"kernel == plain bit for bit on the EarlySNF tile's "
-           f"(256, {L}, {L}) stack + 4 degenerate; kernel {ms:.3f} ms, "
-           f"plain {plain_ms:.3f} ms")
+           f"(256, {L}, {L}) stack + 4 degenerate, on 2 lines of {Ll} and "
+           f"on 8 of {L - 3}; kernel {ms:.3f} ms ({split}, by "
+           f"torch.profiler), plain {plain_ms:.3f} ms")
     # reads the valid (l1, l2) window, writes the whole CRP; two compares
     # and an AND a valid cell
     cells = _cells(l1, l2, L)
     bound = _bound(4 * cells + D.shape[0] * (L * L + 8), 3 * cells)
     return _kernel("binarize", "knn.cu", "acoss_tpu/ops/crp_pallas.py:276",
-                   (got.int() - want.int()).abs().max(), ms, plain_ms, bound)
+                   err, ms, plain_ms, bound)
 
 
 def phase_knn_mask(desc: dict) -> dict:
@@ -700,27 +734,43 @@ def phase_knn_mask(desc: dict) -> dict:
     n = W.shape[-1]
     if W.shape != (128, 2 * L, 2 * L) or not kw.get("largest", True):
         raise AssertionError(f"knn_mask: captured {tuple(W.shape)} {kw}")
-    # k = 1, k = n, and two matrices with rows of ties
-    kx = torch.cat([k, k[2:4]]).clone()
-    kx[0], kx[1] = 1, n
-    Wx = torch.cat([W, torch.round(W[2:4] * 64) / 64])
-    got = crp_cuda.knn_mask_matrix_batch(Wx, kx)
-    want = crp_cuda.knn_mask_matrix_ref(Wx, kx)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, want)
-            and torch.equal(torch.signbit(got), torch.signbit(want))):
-        raise AssertionError(f"knn_mask kernel != plain: "
-                             f"{int((got != want).sum())} cells differ")
+    # k = 1, k = n, k = 65 and 128 (past the lanes' two smallest keys),
+    # and two matrices with rows of ties
+    kx = torch.cat([k, k[2:4], k[4:6]]).clone()
+    kx[0], kx[1], kx[-2], kx[-1] = 1, n, 65, 128
+    Wx = torch.cat([W, torch.round(W[2:4] * 64) / 64, W[4:6]])
+    # lines past the register range, and an odd width (a lane's last
+    # cells cut short)
+    Wl = _long_lines(W.device, seed=1)
+    nl = Wl.shape[-1]
+    kl = torch.tensor([100, nl], dtype=torch.int32, device=W.device)
+    Wo = Wx[-8:, :n - 2, :n - 2].contiguous()
+    cases = [("tile + 6", Wx, kx), (f"long lines n={nl}", Wl, kl),
+             (f"odd width n={n - 2}", Wo, kx[-8:].contiguous())]
+    for what, Wc, kc in cases:
+        got = crp_cuda.knn_mask_matrix_batch(Wc, kc)
+        want = crp_cuda.knn_mask_matrix_ref(Wc, kc)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want)
+                and torch.equal(torch.signbit(got), torch.signbit(want))):
+            raise AssertionError(f"knn_mask kernel != plain ({what}): "
+                                 f"{int((got != want).sum())} cells differ")
+        if what.startswith("tile"):
+            err = (got - want).abs().max()
+    del Wl, got, want
     ms = _cuda_ms(lambda: crp_cuda.knn_mask_matrix_batch(W, k), 10)
     plain_ms = _cuda_ms(lambda: crp_cuda.knn_mask_matrix_ref(W, k), 3)
+    split = _kernel_split(lambda: crp_cuda.knn_mask_matrix_batch(W, k))
     _phase("knn_mask", f"kernel == plain bit for bit on the EarlySNF tile's "
-           f"({W.shape[0]}, {n}, {n}) W stack + k=1, k=n and 2 tie "
-           f"matrices; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+           f"({W.shape[0]}, {n}, {n}) W stack (k {int(k.min())}.."
+           f"{int(k.max())}) + k=1, k=n, k=65, k=128 and 2 tie matrices, on "
+           f"2 lines of {nl} and on 8 of {n - 2}; kernel {ms:.3f} ms "
+           f"({split}, by torch.profiler), plain {plain_ms:.3f} ms")
     # reads and writes every cell of W (no lengths); a compare and a
     # select a cell
     bound = _bound(8 * W.numel() + 4 * W.shape[0], 2 * W.numel())
     return _kernel("knn_mask", "knn.cu", "acoss_tpu/ops/crp_pallas.py:431",
-                   (got - want).abs().max(), ms, plain_ms, bound)
+                   err, ms, plain_ms, bound)
 
 
 def phase_wcsmssm(desc: dict) -> dict:

@@ -1,9 +1,10 @@
-"""Time variants of the fused CRP, dmax, qmax and WCSMSSM kernels on one
-card, each built from a copy of `acoss_tpu_torch/csrc` with one constant
-changed, one phase removed or (qmax) its row barrier replaced by hand-offs
-between warps, beside the sources as they are.
+"""Time variants of the fused CRP, dmax, qmax, WCSMSSM, binarizer and kNN
+mask kernels on one card, each built from a copy of `acoss_tpu_torch/csrc`
+with one constant changed, one phase removed or (qmax) its row barrier
+replaced by hand-offs between warps, beside the sources as they are.
 
     python3 scripts/torch_kernel_variants.py [--out build/kernel_variants]
+        [--kernels crp,dmax,qmax,wcsmssm,binarize,knn_mask]
 
 Run from the root of a checkout on a machine with a CUDA device and nvcc.
 Every variant is compiled (all at once) into its own library under --out
@@ -14,10 +15,15 @@ Serra09 main path's shapes: the fused CRP at B=64, L=512, d=12 and 13
 two kernels from `torch.profiler`; dmax and qmax at B=128, L=512 on
 bench.py's CRP workload; WCSMSSM at B=64, L=512 (random SSMs and CSM,
 lengths 260..470, K = trunc(0.095 (l1 + l2)), EarlySNF's budget), with
-the device time of its stats and out launches. Variants that keep the
-function are checked against the plain versions (bit for bit, WCSMSSM
-within rtol 2e-5 / atol 2e-6); the diagnostic ones (a phase removed) are
-not. Nothing under `csrc/` is modified.
+the device time of its stats and out launches; the binarizer at the
+EarlySNF tile's B=256, L=512 (standard normal matrices, a third of them
+negated uniform ones with zeros, lengths 260..470), with the device time
+of its row and strip launches; the kNN mask at B=128, n=1024 (uniform
+[0, 1) with zeros outside a ragged block, k = trunc(0.095 (l1 + l2)) as
+EarlySNF's, 49..89). Variants that keep the function are checked against
+the plain versions (bit for bit, WCSMSSM within rtol 2e-5 / atol 2e-6);
+the diagnostic ones (a phase removed) are not. Nothing under `csrc/` is
+modified.
 """
 
 from __future__ import annotations
@@ -37,6 +43,16 @@ sys.path.insert(0, os.getcwd())
 from acoss_tpu_torch.ops import _build, alignment_cuda, crp_cuda  # noqa: E402
 from chip_smoke import _kernel_split  # noqa: E402
 
+# the search's bracket off: bisection from the line's smallest key to the
+# top of the key range, for every caller of warp_kth in the build
+NO_BRACKET = [("if (jk == j + 1) mj = m[j];", "if (jk < 0) mj = m[j];")]
+# the bracket's lower end raised to the smallest over the lanes of their
+# j-th smallest keys (below it each lane holds at most j - 1 keys, fewer
+# than k in all)
+TIGHT_LOW = [("unsigned lo = min(__reduce_min_sync(kFull, m[0]), top);",
+              "unsigned lo = min(__reduce_min_sync(kFull, jk <= J ? mj : "
+              "m[0]), top);")]
+SCALAR_STRIP = [("const int vec = L % 4 == 0 &&", "const int vec = L < 0 &&")]
 # (name, [(text in csrc, its replacement)], whether it keeps the function)
 CRP_VARIANTS = [
     ("as is", [], True),
@@ -44,6 +60,8 @@ CRP_VARIANTS = [
      [("kBandBlocksPerSm = 4", "kBandBlocksPerSm = 2")], True),
     ("strips of 8 columns",
      [("for (int cw = 16; cw", "for (int cw = 8; cw")], True),
+    ("bracket's lower end from the lanes' j-th smallest keys", TIGHT_LOW,
+     True),
     ("diagnostic: no row search",
      [("const unsigned t = warp_kth(key, k, kMaxFiniteBits);\n"
        "    if (lane == 0) tr[r] = t;",
@@ -183,6 +201,56 @@ WCSMSSM_VARIANTS = [
      [("const unsigned tk = warp_kth(key, k, kMaxFiniteUKey);",
        "const unsigned tk = key[0];")], False),
 ]
+BINARIZE_VARIANTS = [
+    ("as is", [], True),
+    ("strips of 8 columns",
+     [("for (int rb = 16; rb >= 8;", "for (int rb = 8; rb >= 8;")], True),
+    ("strips of 32 columns",
+     [("for (int rb = 16; rb >= 8;", "for (int rb = 32; rb >= 8;")], True),
+    ("blocks of 4 warps (4 rows a row block)",
+     [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+     True),
+    ("blocks of 16 warps (16 rows a row block)",
+     [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+     True),
+    ("32 keys a lane at L = 512",
+     [("auto run = kpl <= 16   ? binarize_lines<16>",
+       "auto run = kpl <= 0    ? binarize_lines<16>")], True),
+    ("plain bisection (no bracket)", NO_BRACKET, True),
+    ("bracket's lower end from the lanes' j-th smallest keys", TIGHT_LOW,
+     True),
+    ("scalar strip loads and byte stores", SCALAR_STRIP, True),
+    ("diagnostic: no row search",
+     [("const unsigned t = warp_kth(key, k, kMaxFiniteUKey);\n"
+       "  if (lane == 0) *out = t;",
+       "if (lane == 0) *out = key[0];")], False),
+    ("diagnostic: no column search",
+     [("const unsigned t = warp_kth(key, k, kMaxFiniteUKey);\n"
+       "      if (lane == 0) t_col[c] = t;",
+       "if (lane == 0) t_col[c] = key[0];")], False),
+    ("diagnostic: no search", [("const unsigned t = warp_kth(key, k, "
+                                "kMaxFiniteUKey);",
+                                "const unsigned t = key[0] + 0u * k;")],
+     False),
+]
+KNN_MASK_VARIANTS = [
+    ("as is", [], True),
+    ("bracket from the lanes' 2 smallest keys (k <= 64)",
+     [("constexpr int kMaskBracket = 4;", "constexpr int kMaskBracket = 2;")],
+     True),
+    ("bracket from the lanes' 8 smallest keys (k <= 256)",
+     [("constexpr int kMaskBracket = 4;", "constexpr int kMaskBracket = 8;")],
+     True),
+    ("plain bisection (no bracket)", NO_BRACKET, True),
+    ("bracket's lower end from the lanes' j-th smallest keys", TIGHT_LOW,
+     True),
+    ("blocks of 4 warps",
+     [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+     True),
+    ("diagnostic: no search",
+     [("const unsigned t = warp_kth<K, kMaskBracket>(key, kk, kInfUKey);",
+       "const unsigned t = key[0] + 0u * kk;")], False),
+]
 CRP_SOURCES = ("crp.cu", "select.cuh")
 DMAX_SOURCES = ("alignment.cu",)
 WCSMSSM_SOURCES = ("knn.cu", "select.cuh")
@@ -280,25 +348,92 @@ def _wcsmssm(builds, dev) -> None:
               f"{_kernel_split(run)}", flush=True)
 
 
+def _binarize(builds, dev) -> None:
+    """Check and time each binarizer variant at B=256, L=512, with the
+    split of its two launches."""
+    rng = np.random.default_rng(3)
+    B, L = 256, 512
+    D = rng.standard_normal((B, L, L)).astype(np.float32)
+    fused = rng.random((B // 3, L, L)).astype(np.float32)
+    fused[rng.random(fused.shape) < 0.3] = 0.0
+    D[:B // 3] = -fused
+    l1, l2 = (rng.integers(260, 471, B).astype(np.int32) for _ in "ab")
+    D, l1, l2 = (torch.from_numpy(a).to(dev) for a in (D, l1, l2))
+    want = crp_cuda.binarize_matrix_ref(D, l1, l2, 0.095)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, _, exact in BINARIZE_VARIANTS:
+        fn = _load(*builds["binarize", name], "acoss_binarize")
+
+        def run():
+            thr = torch.empty((B, 2, L), dtype=torch.int32, device=dev)
+            S = torch.empty((B, L, L), dtype=torch.uint8, device=dev)
+            _build.check(fn(D.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, L,
+                            0.095, thr.data_ptr(), S.data_ptr(), dev.index,
+                            stream), name)
+            return S
+
+        if exact and not torch.equal(run(), want):
+            raise AssertionError(f"binarize {name}: != plain")
+        print(f"binarize, {name}: {_ms(run):.4f} ms; by kernel: "
+              f"{_kernel_split(run)}", flush=True)
+
+
+def _knn_mask(builds, dev) -> None:
+    """Check and time each kNN mask variant at B=128, n=1024."""
+    rng = np.random.default_rng(4)
+    B, n = 128, 1024
+    W = rng.random((B, n, n)).astype(np.float32)
+    l1, l2 = (rng.integers(260, 471, B) for _ in "ab")
+    for b in range(B):
+        W[b, l1[b] + l2[b]:] = 0.0
+        W[b, :, l1[b] + l2[b]:] = 0.0
+    k = (np.float32(0.095) * (l1 + l2).astype(np.float32)).astype(np.int32)
+    W, k = torch.from_numpy(W).to(dev), torch.from_numpy(k).to(dev)
+    want = crp_cuda.knn_mask_matrix_ref(W, k)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, _, exact in KNN_MASK_VARIANTS:
+        fn = _load(*builds["knn_mask", name], "acoss_knn_mask")
+
+        def run():
+            V = torch.empty_like(W)
+            _build.check(fn(W.data_ptr(), k.data_ptr(), B, n, 1,
+                            V.data_ptr(), dev.index, stream), name)
+            return V
+
+        if exact and not torch.equal(run(), want):
+            raise AssertionError(f"knn_mask {name}: != plain")
+        print(f"knn_mask, {name}: {_ms(run):.4f} ms", flush=True)
+
+
+# kind: (variants, sources) of every kernel this script times
+KINDS = {"crp": (CRP_VARIANTS, CRP_SOURCES),
+         "dmax": (DMAX_VARIANTS, DMAX_SOURCES),
+         "qmax": (QMAX_VARIANTS, DMAX_SOURCES),
+         "wcsmssm": (WCSMSSM_VARIANTS, WCSMSSM_SOURCES),
+         "binarize": (BINARIZE_VARIANTS, WCSMSSM_SOURCES),
+         "knn_mask": (KNN_MASK_VARIANTS, WCSMSSM_SOURCES)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/kernel_variants")
+    ap.add_argument("--kernels", default=",".join(KINDS))
     args = ap.parse_args()
+    kinds = args.kernels.split(",")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     shutil.rmtree(args.out, ignore_errors=True)
-    builds = {("crp", n): _start_build(args.out, f"crp{i}", CRP_SOURCES, s)
-              for i, (n, s, _) in enumerate(CRP_VARIANTS)}
-    builds.update({("dmax", n): _start_build(args.out, f"dmax{i}",
-                                             DMAX_SOURCES, s)
-                   for i, (n, s, _) in enumerate(DMAX_VARIANTS)})
-    builds.update({("qmax", n): _start_build(args.out, f"qmax{i}",
-                                             DMAX_SOURCES, s)
-                   for i, (n, s, _) in enumerate(QMAX_VARIANTS)})
-    builds.update({("wcsmssm", n): _start_build(args.out, f"wcsmssm{i}",
-                                                WCSMSSM_SOURCES, s)
-                   for i, (n, s, _) in enumerate(WCSMSSM_VARIANTS)})
+    builds = {(kind, n): _start_build(args.out, f"{kind}{i}", KINDS[kind][1],
+                                      s)
+              for kind in kinds
+              for i, (n, s, _) in enumerate(KINDS[kind][0])}
     dev = torch.device("cuda", torch.cuda.current_device())
+    if "binarize" in kinds:
+        _binarize(builds, dev)
+    if "knn_mask" in kinds:
+        _knn_mask(builds, dev)
+    if "wcsmssm" in kinds:
+        _wcsmssm(builds, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(1)
     B, L = 64, 512
@@ -308,7 +443,7 @@ def main() -> int:
         X, Y = (rng.standard_normal((B, L, d)).astype(np.float32)
                 for _ in "ab")
         crp_in.append([torch.from_numpy(a).to(dev) for a in (X, Y, l1, l2)])
-    for name, _, exact in CRP_VARIANTS:
+    for name, _, exact in CRP_VARIANTS if "crp" in kinds else []:
         fn = _load(*builds["crp", name], "acoss_fused_crp")
 
         def fused(X, Y, l1, l2):
@@ -338,11 +473,12 @@ def main() -> int:
     for b in range(128):
         S[b, :m[b], :n[b]] = rng.random((m[b], n[b])) < 0.095
     S, m, n = (torch.from_numpy(a).to(dev) for a in (S, m, n))
-    _aligner(builds, DMAX_VARIANTS, "dmax", "acoss_dmax", S, m, n,
-             alignment_cuda.dmax_batch_ref(S, m, n))
-    _aligner(builds, QMAX_VARIANTS, "qmax", "acoss_qmax", S, m, n,
-             alignment_cuda.qmax_batch_ref(S, m, n))
-    _wcsmssm(builds, dev)
+    if "dmax" in kinds:
+        _aligner(builds, DMAX_VARIANTS, "dmax", "acoss_dmax", S, m, n,
+                 alignment_cuda.dmax_batch_ref(S, m, n))
+    if "qmax" in kinds:
+        _aligner(builds, QMAX_VARIANTS, "qmax", "acoss_qmax", S, m, n,
+                 alignment_cuda.qmax_batch_ref(S, m, n))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

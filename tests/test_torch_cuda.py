@@ -132,20 +132,33 @@ def test_serra09_tile_kernel_path_equals_plain(dev):
         assert torch.equal(got[k], want[k]), k
 
 
-def test_binarize_kernel_bit_equal_to_plain(dev):
+# line widths of the binarizer and kNN mask tests: a lane's last keys cut
+# short (100), an odd width (103: the binarizer's scalar loads and byte
+# stores),
+# the EarlySNF widths (512, 1024), 64 and 192 keys a lane (2001, 6144),
+# and past the register range (6200: a block a line)
+SELECT_WIDTHS = [100, 103, 512, 1024, 2001, 6144, 6200]
+
+
+@pytest.mark.parametrize("L", SELECT_WIDTHS)
+def test_binarize_kernel_bit_equal_to_plain(dev, L):
     """Negative values, -0.0 next to +0.0 and ties (the negated SNF cross
-    block), pairs whose rounded k is 0, a zero and a negative length."""
-    rng = np.random.default_rng(20)
-    B, L = 10, 512
+    block), pairs whose rounded k is 0, a zero and a negative length; two
+    more pairs whose rows or columns keep k = 1 (length 11)."""
+    rng = np.random.default_rng(20 if L == 512 else 20 + L)
+    B = 10
     D = rng.standard_normal((B, L, L)).astype(np.float32)
     fused = rng.random((3, L, L)).astype(np.float32)
     fused[rng.random(fused.shape) < 0.3] = 0.0
     D[:3] = -fused
     D[1, :, ::5] = np.abs(D[1, :, ::5])
     D[2] = np.round(D[2] * 4) / 4
-    l1 = rng.integers(300, L + 1, B).astype(np.int32)
-    l2 = rng.integers(300, L + 1, B).astype(np.int32)
+    l1 = rng.integers(L * 300 // 512, L + 1, B).astype(np.int32)
+    l2 = rng.integers(L * 300 // 512, L + 1, B).astype(np.int32)
     l1[3:6], l2[6:8] = [5, 0, -3], [4, 0]
+    D = np.concatenate([D, rng.standard_normal((2, L, L)).astype(np.float32)])
+    l1 = np.concatenate([l1, [L, 11]]).astype(np.int32)
+    l2 = np.concatenate([l2, [11, L]]).astype(np.int32)
     D, l1, l2 = (torch.from_numpy(a).to(dev) for a in (D, l1, l2))
     before = crp_cuda.binarize_matrix_batch.launches
     got = crp_cuda.binarize_matrix_batch(D, l1, l2, 0.095)
@@ -154,18 +167,34 @@ def test_binarize_kernel_bit_equal_to_plain(dev):
     want = crp_cuda.binarize_matrix_ref(D, l1, l2, 0.095)
     assert torch.equal(got, want)
     assert int(got[3:8].sum()) == 0 and int(got[:3].sum()) > 0
+    assert int(got[10:].sum()) > 0
 
 
+@pytest.mark.parametrize("n", SELECT_WIDTHS)
 @pytest.mark.parametrize("largest", [True, False])
-def test_knn_mask_kernel_bit_equal_to_plain(dev, largest):
-    rng = np.random.default_rng(21)
-    B, n = 6, 1024
+def test_knn_mask_kernel_bit_equal_to_plain(dev, largest, n):
+    """k = 1, n, 99, 0 (clamped to 1), n + 5 (clamped to n) and 17, with
+    ties at the threshold and rows of zeros; then k = 48, 64, 65, 95 and
+    128, around the lanes' one, two and four smallest keys that bracket
+    the search, with -0.0 next to +0.0."""
+    rng = np.random.default_rng(21 if n == 1024 else 21 + n)
+    B = 6
     W = rng.random((B, n, n)).astype(np.float32)
     W[rng.random(W.shape) < 0.2] = 0.25          # ties at the threshold
     W[2, :100] = 0.0
     k = np.array([1, n, 99, 0, n + 5, 17], np.int32)
+    more = rng.random((5, n, n)).astype(np.float32)
+    more[rng.random(more.shape) < 0.1] = 0.5
+    more[0, :, ::3] = 0.0
+    more[0, :, 1::3] = -0.0
+    more[1] = -more[1]
+    W = np.concatenate([W, more])
+    k = np.concatenate([k, [48, 64, 65, 95, 128]]).astype(np.int32)
     W, k = torch.from_numpy(W).to(dev), torch.from_numpy(k).to(dev)
+    before = crp_cuda.knn_mask_matrix_batch.launches
     got = crp_cuda.knn_mask_matrix_batch(W, k, largest)
+    torch.cuda.synchronize()
+    assert crp_cuda.knn_mask_matrix_batch.launches == before + 1
     want = crp_cuda.knn_mask_matrix_ref(W, k, largest)
     assert torch.equal(got, want)
     assert torch.equal(torch.signbit(got), torch.signbit(want))

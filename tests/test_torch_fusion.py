@@ -219,6 +219,40 @@ def test_knn_mask_ref_matches_pallas_interpret_bit_for_bit(largest):
     np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
 
 
+def test_binarize_ref_matches_pallas_interpret_near_full_lengths():
+    """Bit for bit at L = 96 with l1 != l2 near L: rows and columns keep
+    different counts (rint(0.095 * 93) = 9, rint(0.095 * 96) = 9,
+    rint(0.095 * 89) = 8), on negative values with ties."""
+    rng = np.random.default_rng(13)
+    B, L, kappa = 4, 96, 0.095
+    D = -np.round(rng.random((B, L, L)) * 8).astype(np.float32) / 8
+    l1 = np.array([96, 89, 95, 96], np.int32)
+    l2 = np.array([93, 96, 94, 89], np.int32)
+    want = np.asarray(jax_binarize(D, l1, l2, kappa=kappa, interpret=True))
+    got = crp_cuda.binarize_matrix_ref(_t(D), _t(l1), _t(l2), kappa).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got.reshape(B, -1).sum(1) > 0).all()
+
+
+def test_knn_mask_ref_matches_pallas_interpret_past_64():
+    """Bit for bit at n = 256 with k from 65 to 128, past the two smallest
+    keys a lane of a warp's search: ties at the threshold, -0.0 next to
+    +0.0."""
+    rng = np.random.default_rng(14)
+    B, n = 4, 256
+    W = rng.random((B, n, n)).astype(np.float32)
+    W[rng.random(W.shape) < 0.2] = 0.25
+    W[3, :, ::4] = -0.0
+    k = np.array([65, 96, 128, 100], np.int32)
+    for largest in (True, False):
+        want = np.asarray(jax_knn_mask(W, k, largest=largest, interpret=True))
+        got = crp_cuda.knn_mask_matrix_ref(_t(W), _t(k), largest).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+        # at least k cells a row kept (matrix 3's zeros are not counted)
+        assert ((got[:3] != 0).sum(-1) >= k[:3, None]).all()
+
+
 def test_wcsmssm_ref_matches_pallas_interpret():
     """Value-equal at the JAX package's own bound (rtol 2e-5, atol 2e-6):
     the kernel sums the neighbourhood means in another order."""
