@@ -34,19 +34,29 @@
 // mbarrier each way, so that warps may run a row apart, measured slower:
 // the waits and arrivals cost more than the barrier.)
 //
-// unequal-gap qmax and SW: one block per pair, threads striding over the
-// N columns; the previous D rows live in shared memory as a ring, a row
-// step reads its CRP bytes and the predecessors' S that set the gap
-// penalties through the L1 cache, and one __syncthreads() per row
-// separates writing row i from reading it as row i-1.
+// unequal-gap qmax and SW (`pred3_kernel`, one template over the cell
+// rule): qmax's design. The three predecessors are qmax's; what differs is
+// that each predecessor's penalty depends on its own S, so the ring starts
+// at row 0 (rows 0 and 1 compute no cell, but their S sets row 2's
+// penalties), and each thread keeps, beside its D rows i-1 and i-2, the
+// CRP words of those rows: its run's words and the 2 bytes left of the run
+// (read from the stage, not exchanged). Every bit is tested in its word; a
+// row step reads its stage once and touches no device memory.
+//
+// Rows longer than the registers hold (N > kRegisterMaxN) take the
+// shared-memory kernels (`qmax_uneq_kernel`, `sw_kernel`): threads
+// striding over the N columns, three D rows in shared memory as a ring,
+// the CRP bytes and the predecessors' S read through the L1 cache, and one
+// __syncthreads() per row. The C entry points choose by shape.
 //
 // In all four, cells outside (m_len, n_len) are never computed (they stay
 // 0), so the kernels need no zero-padding argument and no guard on the
 // gaps. Each thread keeps a running max, reduced over the block at the
 // end. Every operation is the same fp32 operation in the same order as the
 // plain version (the additions as __fadd_rn / __fsub_rn where a product
-// could be contracted), so the scores are bit-equal to it, also where the
-// gaps (SW's -0.7) are not exact in fp32.
+// could be contracted), or a max taken before an addition where rounding's
+// monotonicity makes the two equal, so the scores are bit-equal to it,
+// also where the gaps (SW's -0.7) are not exact in fp32.
 //
 // The TPU kernels' transposed pair-on-lane layout, pre-rolled carries,
 // -BIG row/column biases and block_b/block_t tiling are TPU choices and are
@@ -81,6 +91,7 @@ __device__ float block_max(float v) {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStages = 4;        // chunks of CRP rows in flight
 constexpr int kMaxBlock = 512;    // threads a pair (registers: 128 each)
+constexpr int kRegisterMaxN = 32 * kMaxBlock;   // at most 32 columns each
 constexpr int kStageBudget = 96 * 1024;   // bytes of all the stages
 
 // Rows a chunk holds at row length N, and the bytes of one stage: the
@@ -427,6 +438,194 @@ qmax_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
   store_block_max(best, red, out + b);
 }
 
+// The cell rules of `pred3_kernel`: the score of cell (i, j) from whether
+// S[i, j] is a match (cur), its predecessors' D values p1 = D[i-1, j-1],
+// p2 = D[i-2, j-1], p3 = D[i-1, j-2], and whether each predecessor's own
+// S is a match (s1, s2, s3).
+//
+// Unequal-gap qmax: on a match max(p1, p2, p3) + 1, else
+// max(p1 - g1, p2 - g2, p3 - g3, 0), g = onset after a match, else
+// extension.
+struct QmaxUneqRule {
+  float onset, extension;
+  __device__ __forceinline__ float operator()(bool cur, float p1, float p2,
+                                              float p3, bool s1, bool s2,
+                                              bool s3) const {
+    const float hit = __fadd_rn(fmaxf(fmaxf(p1, p2), p3), 1.0f);
+    const float gap = fmaxf(
+        fmaxf(fmaxf(__fsub_rn(p1, s1 ? onset : extension),
+                    __fsub_rn(p2, s2 ? onset : extension)),
+              __fsub_rn(p3, s3 ? onset : extension)),
+        0.0f);
+    return cur ? hit : gap;
+  }
+};
+
+// Constrained SW: max(v1, v2, v3, 0), v_p = (p + MS) + Delta_p, MS = match
+// or mismatch by cur, Delta_p = 0 on a match, else opening after a matched
+// predecessor and extension after an unmatched one. On a match
+// max_p((p + match) + 0) == max(p1, p2, p3) + match exactly: x + 0 == x,
+// and a rounded addition is monotone.
+struct SwRule {
+  float opening, extension, match, mismatch;
+  __device__ __forceinline__ float operator()(bool cur, float p1, float p2,
+                                              float p3, bool s1, bool s2,
+                                              bool s3) const {
+    const float hit = __fadd_rn(fmaxf(fmaxf(p1, p2), p3), match);
+    const float v1 =
+        __fadd_rn(__fadd_rn(p1, mismatch), s1 ? opening : extension);
+    const float v2 =
+        __fadd_rn(__fadd_rn(p2, mismatch), s2 ? opening : extension);
+    const float v3 =
+        __fadd_rn(__fadd_rn(p3, mismatch), s3 ? opening : extension);
+    return fmaxf(cur ? hit : fmaxf(fmaxf(v1, v2), v3), 0.0f);
+  }
+};
+
+// Whether S at column j0 + t of a row is a match, from the row's run words
+// u (columns j0 ..) and its left word l (bytes 0, 1: columns j0-2, j0-1),
+// for t in [-2, kCols); t is a constant once the loops are unrolled.
+template <int kWords>
+__device__ __forceinline__ bool match_at(const uint32_t (&u)[kWords],
+                                         uint32_t l, int t) {
+  const uint32_t w = t < 0 ? l : u[t < 0 ? 0 : t >> 2];
+  return (w & (0xFFu << (8 * (t < 0 ? t + 2 : t & 3)))) != 0u;
+}
+
+// Unequal-gap qmax and SW (the note at the top): cells from row 2 and
+// column 2, the three predecessors of qmax; a pair with a side shorter
+// than 3 scores 0.
+template <typename Rule, int kCols>
+__global__ void __launch_bounds__(kMaxBlock)
+pred3_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
+             const int* __restrict__ n_len, int M, int N, Rule rule,
+             float* __restrict__ out) {
+  constexpr int kWords = kCols / 4;
+  extern __shared__ __align__(128) uint8_t stages[];
+  __shared__ uint64_t full[kStages];
+  // the last two D values of each warp's run, double-buffered by row
+  __shared__ float xch[2][kMaxBlock / 32][2];
+  __shared__ float red[kMaxBlock / 32];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m = min(m_len[b], M), n = min(n_len[b], N);
+  const int j0 = threadIdx.x * kCols;
+  const int R = chunk_rows(N), sb = stage_bytes(N, kCols);
+  const uint8_t* Sb = S + (size_t)b * M * N;
+  float best = 0.0f;
+  if (m_len[b] >= 3 && n_len[b] >= 3) {
+    // chunk c holds rows c*R .. (c+1)*R - 1
+    const int chunks = (m + R - 1) / R;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int c = 0; c < kStages && c < chunks; ++c)
+        issue_chunk(Sb + (size_t)(c * R) * N,
+                    Sb + (size_t)min((c + 1) * R, m) * N, stages + c * sb,
+                    &full[c]);
+    }
+    __syncthreads();
+    // D rows i-1 and i-2 of the run, and of the columns left of it: ld1
+    // at j0-2, j0-1 (row i-1), ld2 at j0-1 (row i-2); u1, l1 and u2, l2:
+    // the run and left words of S rows i-1 and i-2
+    float d1[kCols], d2[kCols];
+    float ld1[2] = {0.0f, 0.0f}, ld2 = 0.0f;
+    uint32_t u1[kWords], u2[kWords], l1 = 0u, l2 = 0u;
+    bool ok[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      d1[c] = d2[c] = 0.0f;
+      ok[c] = j0 + c >= 2 && j0 + c < n;
+    }
+#pragma unroll
+    for (int g = 0; g < kWords; ++g) u1[g] = u2[g] = 0u;
+    // row i is row r of chunk c, in stage s; the run's bytes of row i
+    // start at byte q of the stage, 4-aligned when S and N are
+    int c = 0, r = 0, s = 0;
+    int q = (int)((uintptr_t)Sb & 15) + j0;
+    const bool aligned = ((uintptr_t)Sb & 3) == 0 && (N & 3) == 0;
+    for (int i = 0; i < m; ++i) {
+      if (r == 0) mbar_wait(&full[s], (c / kStages) & 1);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(stages + s * sb);
+      uint32_t u0[kWords];
+#pragma unroll
+      for (int g = 0; g < kWords; ++g)
+        u0[g] = aligned ? w[(q >> 2) + g] : bytes4(w, q + 4 * g);
+      // thread 0's left columns do not exist (its cells start at j = 2)
+      const uint32_t l0 = j0 < 4 ? 0u
+                          : aligned ? w[(q >> 2) - 1] >> 16
+                                    : bytes4(w, q - 2);
+      // rows 0 and 1 stay 0: the recurrence starts at row 2
+      const bool live = i >= 2;
+      float d0[kCols];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const float p1 = k == 0 ? ld1[1] : d1[k - 1];   // D[i-1, j-1]
+        const float p2 = k == 0 ? ld2 : d2[k - 1];      // D[i-2, j-1]
+        const float p3 = k == 0   ? ld1[0]              // D[i-1, j-2]
+                         : k == 1 ? ld1[1]
+                                  : d1[k - 2];
+        const float x = rule(match_at(u0, l0, k), p1, p2, p3,
+                             match_at(u1, l1, k - 1),
+                             match_at(u2, l2, k - 1),
+                             match_at(u1, l1, k - 2));
+        d0[k] = ok[k] && live ? x : 0.0f;
+        best = fmaxf(best, d0[k]);
+      }
+      // the run's last two values go to the next thread's ld1
+      float nl[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        nl[k] = __shfl_up_sync(kFull, d0[kCols - 2 + k], 1);
+      if (lane == 31) {
+        xch[i & 1][warp][0] = d0[kCols - 2];
+        xch[i & 1][warp][1] = d0[kCols - 1];
+      }
+      // every thread has read row i (and, at a chunk's last row, the
+      // chunk), and the warps' last values are out
+      __syncthreads();
+      if (lane == 0 && warp > 0) {
+        nl[0] = xch[i & 1][warp - 1][0];
+        nl[1] = xch[i & 1][warp - 1][1];
+      }
+      if (threadIdx.x == 0) {
+        nl[0] = nl[1] = 0.0f;
+        // the chunk is consumed: its stage takes chunk c + kStages
+        const int cn = c + kStages;
+        if (r == R - 1 && cn < chunks)
+          issue_chunk(Sb + (size_t)(cn * R) * N,
+                      Sb + (size_t)min((cn + 1) * R, m) * N,
+                      stages + s * sb, &full[s]);
+      }
+      ld2 = ld1[1];
+      ld1[0] = nl[0];
+      ld1[1] = nl[1];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        d2[k] = d1[k];
+        d1[k] = d0[k];
+      }
+#pragma unroll
+      for (int g = 0; g < kWords; ++g) {
+        u2[g] = u1[g];
+        u1[g] = u0[g];
+      }
+      l2 = l1;
+      l1 = l0;
+      q += N;
+      if (++r == R) {
+        r = 0;
+        ++c;
+        s = s + 1 == kStages ? 0 : s + 1;
+        q = (int)((uintptr_t)(Sb + (size_t)(c * R) * N) & 15) + j0;
+      }
+    }
+  }
+  store_block_max(best, red, out + b);
+}
+
+// The shared-memory kernels, for rows past kRegisterMaxN.
+//
 // Qmax with gap_onset != gap_extension: the gap branch subtracts each
 // predecessor cell's own penalty, gamma = onset if that cell of S is a
 // match, else extension. gamma comes from S for every row, rows 0 and 1
@@ -550,6 +749,40 @@ int launch(Kernel kernel, int rows, int B, int N, int device,
   return (int)cudaGetLastError();
 }
 
+// The register kernels' columns a thread at row length N: 4 up to N =
+// 2048 (128 threads at N = 512), then 8, 16, 32, so at most kMaxBlock
+// threads.
+int register_cols(int N) {
+  int cols = 4;
+  while (N > cols * kMaxBlock) cols *= 2;
+  return cols;
+}
+
+int register_threads(int N, int cols) {
+  const int warps = (N + 32 * cols - 1) / (32 * cols);
+  return 32 * (warps > 0 ? warps : 1);
+}
+
+// A register kernel of `cols` columns a thread, one block per pair, its
+// ring of stages in dynamic shared memory; `args` are its arguments.
+template <typename Kernel, typename... Args>
+int launch_registers(Kernel kernel, int cols, int B, int N, int device,
+                     void* stream, Args... args) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (N > kRegisterMaxN) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  const size_t smem = (size_t)kStages * stage_bytes(N, cols);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<B, register_threads(N, cols), smem, (cudaStream_t)stream>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
+
 using RowKernel = void (*)(const uint8_t*, const int*, const int*, int, int,
                            float, float*);
 
@@ -558,32 +791,45 @@ RowKernel row_kernel(bool dmax) {
   return dmax ? dmax_kernel<kCols> : qmax_kernel<kCols>;
 }
 
-// dmax or qmax, one block per pair: 4 columns a thread up to N = 2048 (128
-// threads at N = 512), then 8, 16, 32, so at most kMaxBlock threads.
-int launch_registers(bool dmax, const uint8_t* S, const int* m_len,
-                     const int* n_len, int B, int M, int N, float gap,
-                     float* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (N > 32 * kMaxBlock) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaGetLastError();
-  int cols = 4;
-  while (N > cols * kMaxBlock) cols *= 2;
-  const int warps = (N + 32 * cols - 1) / (32 * cols);
-  const int threads = 32 * (warps > 0 ? warps : 1);
-  const size_t smem = (size_t)kStages * stage_bytes(N, cols);
+// dmax or qmax, one block per pair.
+int launch_row(bool dmax, const uint8_t* S, const int* m_len,
+               const int* n_len, int B, int M, int N, float gap, float* out,
+               int device, void* stream) {
+  const int cols = register_cols(N);
   const RowKernel kernel = cols == 4    ? row_kernel<4>(dmax)
                            : cols == 8  ? row_kernel<8>(dmax)
                            : cols == 16 ? row_kernel<16>(dmax)
                                         : row_kernel<32>(dmax);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(S, m_len, n_len, M, N,
-                                                     gap, out);
-  return (int)cudaGetLastError();
+  return launch_registers(kernel, cols, B, N, device, stream, S, m_len,
+                          n_len, M, N, gap, out);
+}
+
+template <typename Rule>
+using Pred3Kernel = void (*)(const uint8_t*, const int*, const int*, int,
+                             int, Rule, float*);
+
+template <typename Rule>
+Pred3Kernel<Rule> pred3_kernel_at(int cols) {
+  return cols == 4    ? pred3_kernel<Rule, 4>
+         : cols == 8  ? pred3_kernel<Rule, 8>
+         : cols == 16 ? pred3_kernel<Rule, 16>
+                      : pred3_kernel<Rule, 32>;
+}
+
+// Unequal-gap qmax or SW, one block per pair: the register kernel for
+// rows up to kRegisterMaxN, the shared-memory kernel `smem_kernel`
+// (whose arguments after the shape are `params`) past them.
+template <typename Rule, typename SmemKernel, typename... Params>
+int launch_pred3(Rule rule, SmemKernel smem_kernel, const uint8_t* S,
+                 const int* m_len, const int* n_len, int B, int M, int N,
+                 float* out, int device, void* stream, Params... params) {
+  const bool registers = N <= kRegisterMaxN;
+  if (!registers)
+    return launch(smem_kernel, 3, B, N, device, (cudaStream_t)stream, S,
+                  m_len, n_len, M, N, params..., out);
+  const int cols = register_cols(N);
+  return launch_registers(pred3_kernel_at<Rule>(cols), cols, B, N, device,
+                          stream, S, m_len, n_len, M, N, rule, out);
 }
 
 }  // namespace
@@ -593,32 +839,34 @@ extern "C" {
 int acoss_qmax(const uint8_t* S, const int* m_len, const int* n_len, int B,
                int M, int N, float gap, float* out, int device,
                void* stream) {
-  return launch_registers(false, S, m_len, n_len, B, M, N, gap, out, device,
-                          stream);
+  return launch_row(false, S, m_len, n_len, B, M, N, gap, out, device,
+                    stream);
 }
 
 int acoss_dmax(const uint8_t* S, const int* m_len, const int* n_len, int B,
                int M, int N, float gap, float* out, int device,
                void* stream) {
-  return launch_registers(true, S, m_len, n_len, B, M, N, gap, out, device,
-                          stream);
+  return launch_row(true, S, m_len, n_len, B, M, N, gap, out, device,
+                    stream);
 }
 
 int acoss_qmax_uneq(const uint8_t* S, const int* m_len, const int* n_len,
                     int B, int M, int N, float gap_onset,
                     float gap_extension, float* out, int device,
                     void* stream) {
-  return launch(qmax_uneq_kernel, 3, B, N, device, (cudaStream_t)stream, S,
-                m_len, n_len, M, N, gap_onset, gap_extension, out);
+  return launch_pred3(QmaxUneqRule{gap_onset, gap_extension},
+                      qmax_uneq_kernel, S, m_len, n_len, B, M, N, out,
+                      device, stream, gap_onset, gap_extension);
 }
 
 int acoss_sw(const uint8_t* S, const int* m_len, const int* n_len, int B,
              int M, int N, float gap_opening, float gap_extension,
              float match_score, float mismatch_score, float* out,
              int device, void* stream) {
-  return launch(sw_kernel, 3, B, N, device, (cudaStream_t)stream, S, m_len,
-                n_len, M, N, gap_opening, gap_extension, match_score,
-                mismatch_score, out);
+  return launch_pred3(
+      SwRule{gap_opening, gap_extension, match_score, mismatch_score},
+      sw_kernel, S, m_len, n_len, B, M, N, out, device, stream, gap_opening,
+      gap_extension, match_score, mismatch_score);
 }
 
 const char* acoss_error_string(int err) {

@@ -68,9 +68,11 @@ def _check_args(S, m_len, n_len, max_n: int) -> None:
         raise ValueError(f"the kernel takes N <= {max_n}, got N={N}")
 
 
-#: The longest rows each kernel takes: unequal-gap qmax and SW keep three
-#: D rows of fp32 in a block's shared memory; qmax and dmax keep their D
-#: rows in registers, at most 32 columns a thread and 512 threads a pair.
+#: The longest rows the kernels take. The register kernels (all four
+#: aligners) keep their D rows in registers, at most 32 columns a thread
+#: and 512 threads a pair; past that, unequal-gap qmax and SW take
+#: shared-memory kernels that keep three D rows of fp32 in a block's
+#: shared memory (the C entry points choose by shape).
 SMEM_MAX_N = _build.MAX_SMEM // (4 * 3)
 REGISTER_MAX_N = 32 * 512
 

@@ -258,16 +258,59 @@ def _native_fn(name: str):
         name, name.split("_")[0]) + "_batch_cpu")
 
 
-def _check_native(name: str, got, S, m, n, **kw) -> int:
-    """The kernel's scores on the first 16 bench pairs and the degenerate
-    ones must equal the port's native C++ aligner's bit for bit (a
-    composition independent of the plain scans). Returns the pairs."""
-    idx = list(range(16)) + list(range(128, S.shape[0]))
+def _check_native(name: str, got, S, m, n, idx=None, **kw) -> int:
+    """The kernel's scores on the pairs `idx` (by default the first 16
+    bench pairs and the degenerate ones) must equal the port's native C++
+    aligner's bit for bit (a composition independent of the plain scans).
+    Returns the pairs."""
+    if idx is None:
+        idx = list(range(16)) + list(range(128, S.shape[0]))
     want = _native_fn(name)(*(t[idx].cpu().numpy() for t in (S, m, n)),
                             **kw)
     if not np.array_equal(got[idx].cpu().numpy(), want):
         raise AssertionError(f"{name} {kw}: kernel != native C++")
     return len(idx)
+
+
+# unequal-gap qmax and SW: (name, wrapper stem, keyword arguments)
+PRED3_CASES = [("qmax_uneq", "qmax_uneq",
+                {"gap_onset": go, "gap_extension": ge})
+               for go, ge in UNEQ_GAPS] + [("sw", "swconstrained", {})]
+
+
+def phase_long_rows(dev) -> None:
+    """Unequal-gap qmax and SW on rows past the 4-column runs (N = 2,304
+    and 2,101: 8 columns a thread, aligned and not) and past the register
+    kernel's range (N = 16,400: the shared-memory kernel), each bit for
+    bit equal to its plain version and to native C++, with a side of 2
+    and rows 0 and 1 of a pair all matches."""
+    from acoss_tpu_torch.ops import alignment_cuda
+
+    rng = np.random.default_rng(2)
+    shapes = ((6, 160, 2304), (6, 160, 2101), (2, 40, 16400))
+    if not alignment_cuda.REGISTER_MAX_N < shapes[-1][2] \
+            <= alignment_cuda.SMEM_MAX_N:
+        raise AssertionError("long_rows: N misses the shared-memory range")
+    for B, M, N in shapes:
+        m = rng.integers(M * 5 // 8, M + 1, B).astype(np.int32)
+        n = rng.integers(N * 5 // 8, N + 1, B).astype(np.int32)
+        m[:2], n[:2] = [M, 2], [N, N]
+        S = (rng.random((B, M, N)) < KAPPA).astype(np.uint8)
+        S[0, :2] = 1
+        S, m, n = (torch.from_numpy(a).to(dev) for a in (S, m, n))
+        for name, fn, kw in PRED3_CASES:
+            got = getattr(alignment_cuda, f"{fn}_batch_cuda")(S, m, n, **kw)
+            want = getattr(alignment_cuda, f"{fn}_batch_ref")(S, m, n, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {kw} N={N}: kernel != plain")
+            if float(got[0]) <= 0 or float(got[1]) != 0:
+                raise AssertionError(f"{name} N={N}: implausible {got}")
+            _check_native(name, got, S, m, n, idx=list(range(B)), **kw)
+    _phase("long_rows", "qmax_uneq (both gap orders) and sw: kernel == "
+           "plain == native C++ bit for bit on rows of "
+           + ", ".join(f"{N} ({B} x {M})" for B, M, N in shapes)
+           + " (the last past REGISTER_MAX_N: the shared-memory kernels)")
 
 
 def phase_aligners(dev) -> list[dict]:
@@ -593,8 +636,8 @@ def phase_legacy(dev, desc: dict) -> tuple[dict, dict]:
             c, dis_onset=go, dis_extension=ge, device=dev) for c in crps],
         {"qmax_uneq": len(pairs)})
     secs = time.perf_counter() - t0
-    for c, got in zip(crps, dist):
-        score = native.qmax_cpu(c, go, ge)
+    scores = [native.qmax_cpu(c, go, ge) for c in crps]
+    for c, got, score in zip(crps, dist, scores):
         if got != float(np.sqrt(c.shape[1]) / max(score, 1e-12)):
             raise AssertionError("legacy qmax: kernel != native C++")
     cover = [d for (i, j), d in zip(pairs, dist) if j == i + 1 and i % 2 == 0]
@@ -617,20 +660,23 @@ def phase_legacy(dev, desc: dict) -> tuple[dict, dict]:
              torch.tensor([c.shape[1]], dtype=torch.int32, device=dev))
             for c in crps]
     err = 0.0
-    for a in args:
+    for a, score in zip(args, scores):
         got = alignment_cuda.qmax_uneq_batch_cuda(*a, go, ge)
         want = alignment_cuda.qmax_uneq_batch_ref(*a, go, ge)
-        if not torch.equal(got, want) or not float(got[0]) > 0:
+        if not torch.equal(got, want) or not float(got[0]) > 0 \
+                or float(got[0]) != score:
             raise AssertionError(f"legacy qmax_uneq kernel {got} != plain "
-                                 f"{want}, {tuple(a[0].shape)}")
+                                 f"{want} or native C++ {score}, "
+                                 f"{tuple(a[0].shape)}")
         err = max(err, float((got - want).abs().max()))
     ms = _cuda_ms(lambda: [alignment_cuda.qmax_uneq_batch_cuda(*a, go, ge)
                            for a in args], 10) / len(args)
     plain_ms = _cuda_ms(lambda: [alignment_cuda.qmax_uneq_batch_ref(
         *a, go, ge) for a in args], 1) / len(args)
     bounds = [_aligner_bound("qmax_uneq", *a) for a in args]
-    _phase("legacy", f"qmax_uneq kernel == plain bit for bit on each of the "
-           f"{len(args)} CRPs; a launch: kernel {ms:.4f} ms, plain "
+    _phase("legacy", f"qmax_uneq kernel == plain == native C++ bit for bit "
+           f"on each of the {len(args)} CRPs; a launch: kernel {ms:.4f} ms, "
+           f"plain "
            f"{plain_ms:.3f} ms")
     return counts, _kernel(
         "qmax_uneq", "alignment.cu", "acoss_tpu/ops/alignment_pallas.py:101",
@@ -948,10 +994,15 @@ def phase_sw(desc: dict) -> dict:
         S, m, n, **kw), 3)
     host = [t.cpu().numpy() for t in (S, m, n)]
     t0 = time.perf_counter()
-    _native_fn("sw")(*host, **kw)
+    native_tile = _native_fn("sw")(*host, **kw)
     native_ms = 1e3 * (time.perf_counter() - t0)
-    _phase("sw", f"kernel == plain bit for bit on the EarlyFusion tile's "
-           f"({S.shape[0]}, {Lf}, {Lf}) stack (lengths "
+    native_deg = _native_fn("sw")(
+        *(t[S.shape[0]:].cpu().numpy() for t in (Sx, mx, nx)), **kw)
+    if not np.array_equal(got.cpu().numpy(),
+                          np.concatenate([native_tile, native_deg])):
+        raise AssertionError("sw kernel != native C++ on the tile stack")
+    _phase("sw", f"kernel == plain == native C++ bit for bit on the "
+           f"EarlyFusion tile's ({S.shape[0]}, {Lf}, {Lf}) stack (lengths "
            f"{int(m.min())}..{int(m.max())}) + {len(sizes)} degenerate; "
            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, native C++ on one "
            f"host core {native_ms:.1f} ms ({native_ms / ms:.1f}x the "
@@ -968,6 +1019,7 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_build()
     kernels = {k["name"]: k for k in phase_aligners(dev)}
+    phase_long_rows(dev)
     t0 = time.perf_counter()
     fs = _corpus()
     _phase("corpus", f"{fs.n_songs} songs, hpcp frames "

@@ -1,10 +1,12 @@
-"""Time variants of the fused CRP, dmax, qmax, WCSMSSM, binarizer and kNN
-mask kernels on one card, each built from a copy of `acoss_tpu_torch/csrc`
-with one constant changed, one phase removed or (qmax) its row barrier
-replaced by hand-offs between warps, beside the sources as they are.
+"""Time variants of the fused CRP, dmax, qmax, SW, unequal-gap qmax,
+WCSMSSM, binarizer and kNN mask kernels on one card, each built from a
+copy of `acoss_tpu_torch/csrc` with one constant changed, one phase
+removed, (qmax) its row barrier replaced by hand-offs between warps or
+(SW, unequal-gap qmax) the shared-memory kernel forced, beside the
+sources as they are.
 
     python3 scripts/torch_kernel_variants.py [--out build/kernel_variants]
-        [--kernels crp,dmax,qmax,wcsmssm,binarize,knn_mask]
+        [--kernels crp,dmax,qmax,sw,qmax_uneq,wcsmssm,binarize,knn_mask]
 
 Run from the root of a checkout on a machine with a CUDA device and nvcc.
 Every variant is compiled (all at once) into its own library under --out
@@ -15,7 +17,10 @@ Serra09 main path's shapes: the fused CRP at B=64, L=512, d=12 and 13
 two kernels from `torch.profiler`; dmax and qmax at B=128, L=512 on
 bench.py's CRP workload; WCSMSSM at B=64, L=512 (random SSMs and CSM,
 lengths 260..470, K = trunc(0.095 (l1 + l2)), EarlySNF's budget), with
-the device time of its stats and out launches; the binarizer at the
+the device time of its stats and out launches; SW at EarlyFusion's
+B=256, L=576 and unequal-gap qmax on 15 single-pair CRPs of the legacy
+API's sizes (`_pred3_inputs`), with the blocks an SM holds of each
+variant; the binarizer at the
 EarlySNF tile's B=256, L=512 (standard normal matrices, a third of them
 negated uniform ones with zeros, lengths 260..470), with the device time
 of its row and strip launches; the kNN mask at B=128, n=1024 (uniform
@@ -251,6 +256,61 @@ KNN_MASK_VARIANTS = [
      [("const unsigned t = warp_kth<K, kMaskBracket>(key, kk, kInfUKey);",
        "const unsigned t = key[0] + 0u * kk;")], False),
 ]
+# unequal-gap qmax and SW: every build gets a C function that reports the
+# blocks an SM holds of the kernel the entry point would launch at row
+# length N (it follows the variant's own dispatch and stage count)
+PRED3_OCCUPANCY = [("const char* acoss_error_string(int err) {", """\
+int variant_blocks_per_sm(int sw, int N) {
+  const bool registers = N <= kRegisterMaxN;
+  const int cols = register_cols(N), threads = register_threads(N, cols);
+  const size_t ring = (size_t)kStages * stage_bytes(N, cols);
+  int blocks = -1;
+  cudaError_t err;
+  if (registers && sw)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, pred3_kernel_at<SwRule>(cols), threads, ring);
+  else if (registers)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, pred3_kernel_at<QmaxUneqRule>(cols), threads, ring);
+  else if (sw)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, sw_kernel, kThreads, 3 * N * sizeof(float));
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, qmax_uneq_kernel, kThreads, 3 * N * sizeof(float));
+  return err == cudaSuccess ? blocks : -1;
+}
+
+const char* acoss_error_string(int err) {""")]
+PRED3_CELL = """\
+        const float x = rule(match_at(u0, l0, k), p1, p2, p3,
+                             match_at(u1, l1, k - 1),
+                             match_at(u2, l2, k - 1),
+                             match_at(u1, l1, k - 2));"""
+PRED3_VARIANTS = [
+    ("as is", [], True),
+    ("the shared-memory kernel (the parent's design)",
+     [("const bool registers = N <= kRegisterMaxN;",
+       "const bool registers = false;")], True),
+    ("2 stages",
+     [("constexpr int kStages = 4;", "constexpr int kStages = 2;")], True),
+    ("3 stages",
+     [("constexpr int kStages = 4;", "constexpr int kStages = 3;")], True),
+    ("8 columns a thread",
+     [("int cols = 4;", "int cols = 8;")], True),
+    ("diagnostic: no fp cell arithmetic (the four bits still tested)",
+     [(PRED3_CELL,
+       "        const float x = match_at(u0, l0, k) | match_at(u1, l1, k - 1)"
+       "\n            | match_at(u2, l2, k - 1) | match_at(u1, l1, k - 2)"
+       "\n            ? p1 + 1.0f : p2;")], False),
+    ("diagnostic: no cell arithmetic",
+     [(PRED3_CELL,
+       "        const float x = match_at(u0, l0, k) ? p1 + 1.0f : p2;")],
+     False),
+]
+SW_VARIANTS = [(name, PRED3_OCCUPANCY + subs, exact)
+               for name, subs, exact in PRED3_VARIANTS]
+QMAX_UNEQ_VARIANTS = SW_VARIANTS
 CRP_SOURCES = ("crp.cu", "select.cuh")
 DMAX_SOURCES = ("alignment.cu",)
 WCSMSSM_SOURCES = ("knn.cu", "select.cuh")
@@ -405,10 +465,70 @@ def _knn_mask(builds, dev) -> None:
         print(f"knn_mask, {name}: {_ms(run):.4f} ms", flush=True)
 
 
+def _pred3_inputs(kind: str, dev):
+    """SW: one (256, 576, 576) stack as an EarlyFusion tile hands the
+    kernel (lengths 385..561, density 0.08); qmax_uneq: 15 (1, M, N) CRPs
+    as the legacy API hands it one a launch (sides 260..470, density
+    0.1). Each batch is (S, m_len, n_len) on `dev`."""
+    rng = np.random.default_rng(5)
+    if kind == "sw":
+        B, L = 256, 576
+        m, n = (rng.integers(385, 562, B).astype(np.int32) for _ in "ab")
+        S = np.zeros((B, L, L), np.uint8)
+        for b in range(B):
+            S[b, :m[b], :n[b]] = rng.random((m[b], n[b])) < 0.08
+        shapes = [(S, m, n)]
+    else:
+        shapes = []
+        for _ in range(15):
+            mm, nn = (int(x) for x in rng.integers(260, 471, 2))
+            S = (rng.random((1, mm, nn)) < 0.1).astype(np.uint8)
+            shapes.append((S, np.array([mm], np.int32),
+                           np.array([nn], np.int32)))
+    return [[torch.from_numpy(a).to(dev) for a in batch] for batch in shapes]
+
+
+def _pred3(builds, kind: str, dev) -> None:
+    """Check and time each variant of the SW or unequal-gap qmax kernel
+    (the mean ms a launch over the batches of `_pred3_inputs`), with the
+    blocks an SM holds of it at the batches' row length."""
+    entry, params = {"sw": ("acoss_sw", (-0.5, -0.7, 1.0, -1.0)),
+                     "qmax_uneq": ("acoss_qmax_uneq", (0.3, 0.8))}[kind]
+    ref = {"sw": alignment_cuda.swconstrained_batch_ref,
+           "qmax_uneq": alignment_cuda.qmax_uneq_batch_ref}[kind]
+    batches = _pred3_inputs(kind, dev)
+    wants = [ref(*a, *params) for a in batches]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, _, exact in KINDS[kind][0]:
+        lib, proc = builds[kind, name]
+        fn = _load(lib, proc, entry)
+        occ = ctypes.CDLL(lib).variant_blocks_per_sm
+        occ.argtypes, occ.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+
+        def run():
+            outs = []
+            for S, m, n in batches:
+                B, M, N = S.shape
+                out = torch.empty(B, dtype=torch.float32, device=dev)
+                _build.check(fn(S.data_ptr(), m.data_ptr(), n.data_ptr(), B,
+                                M, N, *params, out.data_ptr(), dev.index,
+                                stream), name)
+                outs.append(out)
+            return outs
+
+        if exact and not all(torch.equal(g, w) for g, w in zip(run(), wants)):
+            raise AssertionError(f"{kind} {name}: != plain")
+        blocks = {occ(kind == "sw", int(a[0].shape[2])) for a in batches}
+        print(f"{kind}, {name}: {_ms(run) / len(batches):.4f} ms a launch; "
+              f"blocks an SM {sorted(blocks)}", flush=True)
+
+
 # kind: (variants, sources) of every kernel this script times
 KINDS = {"crp": (CRP_VARIANTS, CRP_SOURCES),
          "dmax": (DMAX_VARIANTS, DMAX_SOURCES),
          "qmax": (QMAX_VARIANTS, DMAX_SOURCES),
+         "sw": (SW_VARIANTS, DMAX_SOURCES),
+         "qmax_uneq": (QMAX_UNEQ_VARIANTS, DMAX_SOURCES),
          "wcsmssm": (WCSMSSM_VARIANTS, WCSMSSM_SOURCES),
          "binarize": (BINARIZE_VARIANTS, WCSMSSM_SOURCES),
          "knn_mask": (KNN_MASK_VARIANTS, WCSMSSM_SOURCES)}
@@ -428,6 +548,9 @@ def main() -> int:
               for kind in kinds
               for i, (n, s, _) in enumerate(KINDS[kind][0])}
     dev = torch.device("cuda", torch.cuda.current_device())
+    for kind in ("sw", "qmax_uneq"):
+        if kind in kinds:
+            _pred3(builds, kind, dev)
     if "binarize" in kinds:
         _binarize(builds, dev)
     if "knn_mask" in kinds:

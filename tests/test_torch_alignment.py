@@ -82,6 +82,53 @@ def test_kernel_ref_matches_pallas_interpret_l72(name, density):
     assert got[0] > 0 and got[4] == 0
 
 
+# SW and unequal-gap qmax, whose kernel reads the 2 bytes left of each
+# 4-column run and whose row 2 takes its penalties from rows 0 and 1:
+# (plain version, XLA scan, Pallas function, keyword arguments)
+L72_PRED3 = {
+    "sw": ("swconstrained_batch_ref", "swconstrained_batch",
+           "swconstrained_batch_pallas", {}),
+    "sw_03_09": ("swconstrained_batch_ref", "swconstrained_batch",
+                 "swconstrained_batch_pallas",
+                 {"gap_opening": -0.3, "gap_extension": -0.9}),
+    "qmax_uneq_03_08": ("qmax_uneq_batch_ref", "qmax_batch",
+                        "qmax_batch_pallas_uneq",
+                        {"gap_onset": 0.3, "gap_extension": 0.8}),
+    "qmax_uneq_08_03": ("qmax_uneq_batch_ref", "qmax_batch",
+                        "qmax_batch_pallas_uneq",
+                        {"gap_onset": 0.8, "gap_extension": 0.3}),
+}
+
+
+@pytest.mark.parametrize("name", list(L72_PRED3))
+@pytest.mark.parametrize("density", [0.095, 0.3])
+def test_pred3_ref_matches_xla_scan_and_pallas_interpret_l72(name, density):
+    """At L = 72, with rows 0 and 1 of the first pair all matches: the
+    plain version equals the XLA scan bit for bit, and the Pallas kernel
+    in interpret mode bit for bit (unequal-gap qmax: the same fp32
+    operations) or within the JAX package's bound atol 1e-4 (SW, which
+    reassociates its sums)."""
+    sizes = [(72, 72), (71, 37), (3, 72), (0, 9), (72, 65)]
+    rng = np.random.default_rng(int(density * 1000) + 1)
+    S = np.zeros((len(sizes), 72, 72), np.uint8)
+    for b, (m, n) in enumerate(sizes):
+        S[b, :m, :n] = rng.random((m, n)) < density
+    S[0, :2] = 1
+    ml = np.array([z[0] for z in sizes], np.int32)
+    nl = np.array([z[1] for z in sizes], np.int32)
+    rname, xname, pname, kw = L72_PRED3[name]
+    got = _port(getattr(alignment_cuda, rname), S, ml, nl, **kw)
+    np.testing.assert_array_equal(got, np.asarray(
+        getattr(jax_alignment, xname)(S, ml, nl, **kw)))
+    pallas = np.asarray(getattr(alignment_pallas, pname)(
+        S, ml, nl, block_b=8, block_t=8, interpret=True, **kw))
+    if name.startswith("qmax_uneq"):
+        np.testing.assert_array_equal(got, pallas)
+    else:
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-4)
+    assert got[0] > 0 and got[3] == 0
+
+
 @pytest.mark.parametrize("name", ["qmax", "dmax"])
 @pytest.mark.parametrize("gaps", [(0.5, 0.5), (0.3, 0.7), (1.0, 0.25),
                                   (-0.2, -0.2)])

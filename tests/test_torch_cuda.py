@@ -58,9 +58,10 @@ def test_aligner_kernel_bit_equal_to_plain(dev, name, L):
     """At the Serra09 (512) and EarlyFusion (576) widths, at 100 (a row
     that is not a whole number of the 16-byte copies or 4-column runs of
     a warp), 103 (rows that are not 4-byte aligned in the stages: the
-    byte-funnel reads of qmax and dmax) and 1024 (chunks of CRP rows that
-    wrap the stage ring more often), with degenerate pairs and a pair
-    whose rows 0 and 1 are all matches."""
+    byte-funnel reads of every register kernel; for SW and unequal-gap
+    qmax also those of the 2 bytes left of a run) and 1024 (chunks of CRP
+    rows that wrap the stage ring more often), with degenerate pairs and
+    a pair whose rows 0 and 1 are all matches."""
     S, m, n = (torch.from_numpy(a).to(dev) for a in _crps(0, L=L))
     S[5, :2, :n[5]] = 1
     wname, rname, kw = ALIGNERS[name]
@@ -74,24 +75,69 @@ def test_aligner_kernel_bit_equal_to_plain(dev, name, L):
     assert float(got[5:].min()) > 0
 
 
-@pytest.mark.parametrize("N", [2304, 2101])
-@pytest.mark.parametrize("name", ["qmax", "dmax"])
-def test_register_aligner_wide_rows_bit_equal_to_plain(dev, name, N):
-    """Rows past 2048 columns, where qmax and dmax take 8 columns a
-    thread (288 and 263 threads), aligned and not; a negative gap."""
-    rng = np.random.default_rng(N)
-    B, M = 6, 160
-    m = rng.integers(100, M + 1, B).astype(np.int32)
+# the keyword arguments each aligner kernel is held to plain with on rows
+# past the 4-column runs: its own, and gaps or scores of the other sign
+WIDE_PARAMS = {
+    "qmax": [{"gap": 0.5}, {"gap": -0.3}],
+    "dmax": [{"gap": 0.5}, {"gap": -0.3}],
+    "qmax_uneq_03_08": [ALIGNERS["qmax_uneq_03_08"][2],
+                        {"gap_onset": -0.2, "gap_extension": 0.5}],
+    "qmax_uneq_08_03": [ALIGNERS["qmax_uneq_08_03"][2],
+                        {"gap_onset": 0.5, "gap_extension": -0.2}],
+    "sw": [{}, {"gap_opening": 0.2}],
+}
+
+
+def _wide_crps(seed, B, M, N):
+    """Random CRPs of ragged lengths, a full-size pair and a side of 2."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(M * 5 // 8, M + 1, B).astype(np.int32)
     n = rng.integers(N * 5 // 8, N + 1, B).astype(np.int32)
     m[:2], n[:2] = [M, 2], [N, N]
     S = (rng.random((B, M, N)) < 0.095).astype(np.uint8)
+    return S, m, n
+
+
+def _check_wide(dev, name, S, m, n):
     S, m, n = (torch.from_numpy(a).to(dev) for a in (S, m, n))
     wname, rname, _ = ALIGNERS[name]
-    for gap in (0.5, -0.3):
-        got = getattr(alignment_cuda, wname)(S, m, n, gap=gap)
-        want = getattr(alignment_cuda, rname)(S, m, n, gap=gap)
-        assert torch.equal(got, want), gap
-        assert float(got[0]) > 0 and float(got[1]) == 0
+    for kw in WIDE_PARAMS[name]:
+        got = getattr(alignment_cuda, wname)(S, m, n, **kw)
+        want = getattr(alignment_cuda, rname)(S, m, n, **kw)
+        assert torch.equal(got, want), kw
+        assert float(got[0]) > 0 and float(got[1]) == 0, kw
+
+
+@pytest.mark.parametrize("N", [2304, 2101])
+@pytest.mark.parametrize("name", list(ALIGNERS))
+def test_register_aligner_wide_rows_bit_equal_to_plain(dev, name, N):
+    """Rows past 2048 columns, where the register kernels take 8 columns
+    a thread (288 and 263 threads), aligned and not; gaps (and SW's
+    opening) of the other sign."""
+    _check_wide(dev, name, *_wide_crps(N, 6, 160, N))
+
+
+@pytest.mark.parametrize("name", ["qmax_uneq_03_08", "qmax_uneq_08_03",
+                                  "sw"])
+def test_aligner_long_rows_take_shared_memory_kernel(dev, name):
+    """Rows past `REGISTER_MAX_N` (16,400 columns): unequal-gap qmax and
+    SW take the shared-memory kernels, bit-equal to plain."""
+    N = 16400
+    assert alignment_cuda.REGISTER_MAX_N < N <= alignment_cuda.SMEM_MAX_N
+    _check_wide(dev, name, *_wide_crps(7, 2, 40, N))
+
+
+@pytest.mark.parametrize("name", list(ALIGNERS))
+def test_aligner_rows_past_limit_raise(dev, name):
+    """A row longer than any kernel of the aligner takes is refused, not
+    computed by the plain version."""
+    wname, _, kw = ALIGNERS[name]
+    limit = (alignment_cuda.REGISTER_MAX_N if name in ("qmax", "dmax")
+             else alignment_cuda.SMEM_MAX_N)
+    S = torch.zeros((1, 3, limit + 1), dtype=torch.uint8, device=dev)
+    ln = torch.tensor([3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=f"N <= {limit}"):
+        getattr(alignment_cuda, wname)(S, ln, ln, **kw)
 
 
 @pytest.mark.parametrize("L,ties", [(100, False), (512, False),
