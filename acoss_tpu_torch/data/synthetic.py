@@ -139,3 +139,106 @@ def make_synthetic_dataset(
         ragged_features=("hpcp", "crema", "mfcc_htk", "onsets",
                          "novfn", "snovfn"),
     )
+
+
+class LazySyntheticCorpus:
+    """Planted-clique corpus generated ON DEMAND, for Da-TACOS-scale runs.
+
+    (numpy copy of `acoss_tpu.data.synthetic.LazySyntheticCorpus`: the
+    same arguments render the same songs, bit for bit.)
+
+    `make_synthetic_dataset` materializes every song up front — fine at
+    covers80 scale, ~40 GB of host RAM at the Da-TACOS benchmark's
+    15,000 songs (1000 cliques x 13 + 2000 distractor singletons). This
+    class exposes the two members chunked extraction
+    (`descstore.extract_streamed`) and the bucketed sweep use —
+    `n_songs` and `subset(idxs)` — and renders only the requested songs,
+    each from a deterministic per-(clique, member) RNG stream, so any
+    chunking of the corpus yields bit-identical songs.
+
+    Layout matches the Da-TACOS subset convention: cliques `W_<c>` of
+    `clique_size` performances `P_<p>`, then `n_distractors` singleton
+    cliques `W_d<d>`.
+    """
+
+    def __init__(self, n_cliques: int = 1000, clique_size: int = 13,
+                 n_distractors: int = 2000, n_states: int = 48,
+                 base_duration: float = 300.0, beat_period: float = 30.0,
+                 noise: float = 0.22, seed: int = 0,
+                 cover_tempo_range: tuple = (0.8, 1.25)):
+        self.n_cliques = n_cliques
+        self.clique_size = clique_size
+        self.n_distractors = n_distractors
+        self.n_states = n_states
+        self.base_duration = base_duration
+        self.beat_period = beat_period
+        self.noise = noise
+        self.seed = seed
+        self.cover_tempo_range = cover_tempo_range
+        labels, track_ids = [], []
+        for c in range(n_cliques):
+            labels += [f"W_{c}"] * clique_size
+            track_ids += [f"W_{c}/P_{p}" for p in range(clique_size)]
+        for d in range(n_distractors):
+            labels.append(f"W_d{d}")
+            track_ids.append(f"W_d{d}/P_0")
+        self.labels = np.asarray(labels)
+        self.track_ids = np.asarray(track_ids)
+        self._templates = _chord_templates(np.random.default_rng(seed))
+
+    @property
+    def n_songs(self) -> int:
+        return len(self.labels)
+
+    def _locate(self, i: int) -> tuple[int, int]:
+        """song index -> (clique id, member id); distractor cliques get
+        ids past n_cliques."""
+        body = self.n_cliques * self.clique_size
+        if i < body:
+            return divmod(i, self.clique_size)
+        return self.n_cliques + (i - body), 0
+
+    def _render(self, i: int) -> dict:
+        c, p = self._locate(i)
+        # clique-shared latents from the clique stream; per-member noise
+        # / transposition / tempo from the member stream — members render
+        # identically no matter which subset() call produces them
+        rng_c = np.random.default_rng([self.seed, 7919, c])
+        states = rng_c.integers(0, len(self._templates),
+                                size=self.n_states)
+        durations = self.base_duration * (0.5 + rng_c.random(self.n_states))
+        raw = rng_c.normal(0, 1, 64)
+        kernel = np.exp(-0.5 * (np.arange(-8, 9) / 4.0) ** 2)
+        smooth = np.convolve(raw, kernel / kernel.sum(), mode="same")
+        tempo_curve = 1.0 + 0.35 * smooth / max(np.abs(smooth).max(), 1e-9)
+        timbre = rng_c.normal(size=(self.n_states, 13)).astype(np.float32)
+
+        rng_m = np.random.default_rng([self.seed, 104729, c, p])
+        transposition = int(rng_m.integers(0, 12)) if p else 0
+        tempo_factor = float(rng_m.uniform(*self.cover_tempo_range)) \
+            if p else 1.0
+        chroma, onsets, novfn, snovfn = _render_song(
+            rng_m, states, durations, self._templates, transposition,
+            tempo_factor, self.noise, self.beat_period, tempo_curve)
+        L = chroma.shape[0]
+        src = np.repeat(timbre, 4, axis=0)
+        ii = np.linspace(0, len(src) - 1, L)
+        mfcc = src[np.round(ii).astype(int)] + \
+            0.5 * rng_m.normal(size=(L, 13)).astype(np.float32)
+        return {
+            "hpcp": chroma,
+            "crema": np.roll(chroma, 1, axis=1),
+            "mfcc_htk": mfcc.astype(np.float32),
+            "onsets": onsets[:, None].astype(np.int32),
+            "novfn": novfn[:, None],
+            "snovfn": snovfn[:, None],
+        }
+
+    def subset(self, idx) -> FeatureSet:
+        idx = np.asarray(idx)
+        return FeatureSet.from_songs(
+            [self._render(int(i)) for i in idx],
+            self.labels[idx], self.track_ids[idx],
+            ragged_features=("hpcp", "crema", "mfcc_htk", "onsets",
+                             "novfn", "snovfn"),
+        )

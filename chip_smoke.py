@@ -23,7 +23,16 @@ songs, 210 tiles, 12,720 pairs):
 - `run_pairwise(Serra09(do_ssms=True))`, Serra09 with its ssms channel
   (fused CRP, binarizer, qmax, dmax), on the same descriptors;
 - `benchmark(EarlyFusion())`, constrained Smith-Waterman and late fusion
-  (the SW kernel; the kNN row mask in the late SNF).
+  (the SW kernel; the kNN row mask in the late SNF);
+
+then Serra09 at Da-TACOS song geometry through the sweep engines
+(`datacos_geometry`: 600 songs of a `LazySyntheticCorpus`, 40 cliques x
+13 + 80 distractors, extracted into an int8 disk store; the plain in-RAM
+sweep of the dequantized store, the bucketed sweep streamed from
+per-bucket int8 stores into memmapped scores, killed half way and resumed
+from its ledger, and the hybrid 128-song-panel sweep; all bit-equal to
+their plain references, with the device's idle share on the bucketed
+sweep).
 
 Every path runs with the launch counts set to 0 and checks them against
 the counts its design implies, checks retrieval (MAP), and the three
@@ -953,6 +962,211 @@ def phase_early_fusion(dev, fs) -> tuple[dict, dict]:
     return desc, counts
 
 
+class _Killed(Exception):
+    """Stands for a process killed in the middle of a sweep."""
+
+
+def _device_busy_ms(prof) -> float:
+    """Summed device time of every kernel and copy in a profile."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def phase_datacos_geometry(dev) -> dict:
+    """Serra09 at Da-TACOS song geometry through the sweep engines: a
+    LazySyntheticCorpus of 40 cliques x 13 covers + 80 distractors (600
+    songs, covers80-real song lengths), extracted into an int8 disk store,
+    then swept by the plain in-RAM sweep of the dequantized store (the
+    reference), the bucketed sweep streamed from per-bucket int8 stores
+    into memmapped scores (killed about half way, then resumed from its
+    ledger; the resumed half profiled for the device's idle share), and
+    the hybrid 128-song-panel sweep of the store. Every engine's scores
+    equal its reference bit for bit; every sweep launches qmax, dmax and
+    the fused CRP once, once and twice a tile it sweeps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acoss_tpu_torch.benchmarking import harness
+    from acoss_tpu_torch.benchmarking.algorithms import Serra09
+    from acoss_tpu_torch.benchmarking.evaluation import eval_statistics
+    from acoss_tpu_torch.data import LazySyntheticCorpus
+    from acoss_tpu_torch.data.descstore import (DescriptorStore,
+                                                extract_streamed,
+                                                upcast_stream)
+    from acoss_tpu_torch.ops import _build, alignment_cuda
+
+    name = "datacos_geometry"
+    t_phase = time.perf_counter()
+    corpus = LazySyntheticCorpus(n_cliques=40, clique_size=13,
+                                 n_distractors=80, base_duration=300.0)
+    n = corpus.n_songs
+    pairs = n * (n - 1) // 2
+    T = _swept_tiles(n, Serra09.TILE)
+
+    def launches_for(tiles: int) -> dict:
+        return {"qmax": tiles, "dmax": tiles, "fused_crp": 2 * tiles}
+
+    expect = launches_for(T)
+
+    def check_map(what: str, Ds: dict, labels) -> dict:
+        stats = {k: eval_statistics(np.asarray(D), labels)
+                 for k, D in Ds.items()}
+        _check_map(f"{name} {what}", stats, {"": 0.99})
+        return stats
+
+    def check_equal(what: str, got: dict, want: dict) -> None:
+        for k in Serra09.SIMILARITY_TYPES:
+            g, w = np.asarray(got[k]), np.asarray(want[k])
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{name}: {what} {k} != its reference "
+                                     f"at {int((g != w).sum())} cells")
+
+    def timed(what: str, run, tiles: int):
+        t0 = time.perf_counter()
+        out, _ = _counted(f"{name} {what}", run, launches_for(tiles))
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        store = extract_streamed(Serra09(), corpus, f"{tmp}/store",
+                                 quant="int8", half_min_bytes=16384,
+                                 device=dev)
+        t_extract = time.perf_counter() - t0
+        if not (store["chroma"].dtype == store["mfcc"].dtype == np.int8):
+            raise AssertionError(f"{name}: the store is not int8: "
+                                 f"{ {k: str(v.dtype) for k, v in store.items()} }")
+        lengths = np.asarray(store["length"])
+        Lw = store["chroma"].shape[1]
+        # every tile pads to the store's width: it must be inside the
+        # fused CRP's lines (its C entry point sizes the shared memory and
+        # returns 0 past them) and qmax / dmax's rows
+        lib = _build.library()
+        crp_smem = [lib.acoss_fused_crp_smem(Lw, d, 9) for d in (12, 13)]
+        if not (Lw <= alignment_cuda.REGISTER_MAX_N
+                and all(0 < s <= _build.MAX_SMEM for s in crp_smem)):
+            raise AssertionError(f"{name}: width {Lw} is past a kernel "
+                                 f"limit (fused CRP shared memory "
+                                 f"{crp_smem})")
+        _phase(name, f"{n} songs ({corpus.n_cliques} x {corpus.clique_size}"
+               f" + {corpus.n_distractors}), {pairs} pairs, {T} tiles; "
+               f"descriptor rows {int(lengths.min())}..{int(lengths.max())}"
+               f", store width {Lw} (fused CRP lines <= 6144, qmax / dmax "
+               f"rows <= {alignment_cuda.REGISTER_MAX_N}); int8 store "
+               f"{sum(v.nbytes for v in store.values())} bytes; extract "
+               f"{t_extract:.2f} s")
+
+        # the reference: the plain in-RAM sweep of the dequantized store
+        deq = upcast_stream({k: torch.from_numpy(np.array(v))
+                             for k, v in store.items()})
+        ref, t_ref = timed("plain", lambda: harness.run_pairwise(
+            Serra09(), deq, n, device=dev), T)
+        t0 = time.perf_counter()
+        check_map("plain", ref, corpus.labels)
+        t_eval = time.perf_counter() - t0
+
+        # the bucketed sweep from per-bucket int8 stores into memmapped
+        # scores, killed after about half its tiles, then resumed
+        fs = corpus.subset(np.arange(n))
+        sd, ckpt = f"{tmp}/stream", f"{tmp}/ledger.npz"
+        killed_at = T // 2
+        bucket_kw = dict(n_buckets=4, stream_dir=sd, stream_quant="int8",
+                         stream_min_bytes=16384, checkpoint_path=ckpt,
+                         checkpoint_every=max(1, min(16, killed_at // 4)),
+                         return_perm=True, device=dev)
+
+        class KilledSerra09(Serra09):
+            calls = 0
+
+            def tile_scores(self, row, col, plain=False):
+                if self.calls == killed_at:
+                    raise _Killed
+                self.calls += 1
+                return super().tile_scores(row, col, plain)
+
+        stage = {}
+
+        def killed_run() -> bool:
+            try:
+                harness.run_pairwise_bucketed(KilledSerra09(), fs,
+                                              times=stage, **bucket_kw)
+            except _Killed:
+                return True
+            return False
+
+        t0 = time.perf_counter()
+        killed, _ = _counted(f"{name} bucketed (killed)", killed_run,
+                             launches_for(killed_at))
+        t_killed = time.perf_counter() - t0
+        if not killed:
+            raise AssertionError(f"{name}: the bucketed sweep was not killed")
+        with np.load(ckpt) as z:
+            ledger_done = int(z["done"].sum())
+        if not 0 < ledger_done <= killed_at:
+            raise AssertionError(f"{name}: {ledger_done} tiles in the ledger "
+                                 f"after {killed_at} swept")
+        bucket_times = {}
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (Db, perm), _ = _counted(
+                f"{name} bucketed (resumed)",
+                lambda: harness.run_pairwise_bucketed(
+                    Serra09(), fs, times=bucket_times, **bucket_kw),
+                launches_for(T - ledger_done))
+        t_resumed = time.perf_counter() - t0
+        busy_s = _device_busy_ms(prof) / 1e3
+        idle = 1 - busy_s / bucket_times["sweep"]
+
+        # the bucketed sweep's reference: the plain sweep of its own
+        # per-bucket stores, dequantized and merged in the sorted order
+        # (a pair's orientation, row song or column song, is part of its
+        # score: the plain sweep in the caller's order would orient the
+        # pairs whose order the sort swaps the other way)
+        edges = harness._bucket_edges(n, 4, Serra09.TILE)
+        buckets = [upcast_stream({k: torch.from_numpy(np.array(v)) for k, v
+                                  in DescriptorStore.open(
+                                      f"{sd}/desc/bucket_{b:04d}").items()})
+                   for b in range(len(edges) - 1)]
+        merged = harness._merge_bucket_descs(buckets, np.arange(n))
+        same_desc = all(np.array_equal(merged[k], deq[k].numpy()[perm])
+                        for k in deq)
+        ref_sorted, t_ref_sorted = timed(
+            "plain (sorted)", lambda: harness.run_pairwise(
+                Serra09(), merged, n, device=dev), T)
+        check_equal("bucketed (killed and resumed)", Db, ref_sorted)
+        check_map("bucketed", Db, corpus.labels[perm])
+        _phase(name, f"bucketed: {len(buckets)} buckets at widths "
+               f"{[int(b['chroma'].shape[1]) for b in buckets]}, extract "
+               f"{stage['extract']:.2f} s; killed after {killed_at} tiles "
+               f"({t_killed:.2f} s, the ledger held {ledger_done}), resumed "
+               f"{T - ledger_done} tiles under the profiler ({t_resumed:.2f} "
+               f"s, sweep {bucket_times['sweep']:.2f} s, device busy "
+               f"{busy_s:.2f} s, idle {idle:.1%}); == the plain sweep of its "
+               f"stores in the sorted order bit for bit; its stores "
+               f"{'equal' if same_desc else 'differ from'} the plain "
+               f"store's rows")
+
+        # the hybrid sweep: 128-song device panels, column tiles streamed
+        # from the int8 store
+        Dh, t_hybrid = timed("hybrid", lambda: harness.run_pairwise_hybrid(
+            Serra09(), store, n, panel_songs=128, device=dev,
+            scores_dir=f"{tmp}/hybrid"), T)
+        check_equal("hybrid", Dh, ref)
+        stats = check_map("hybrid", Dh, corpus.labels)
+
+    _phase(name, f"plain {t_ref:.2f} s = {pairs / t_ref:.1f} pairs/s, plain "
+           f"(sorted) {t_ref_sorted:.2f} s = {pairs / t_ref_sorted:.1f} "
+           f"pairs/s, bucketed (killed half, unprofiled) "
+           f"{killed_at / T * pairs / (t_killed - stage['extract']):.1f} "
+           f"pairs/s, hybrid {t_hybrid:.2f} s = {pairs / t_hybrid:.1f} "
+           f"pairs/s; launches a sweep {expect}; eval (4 channels) "
+           f"{t_eval:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    _phase(name, "plain == hybrid bit for bit; " + ", ".join(
+        f"{k} MAP {s.map:.4f} MR {s.mr:.3f} Top-1 {s.tops.get(1)}"
+        for k, s in stats.items()))
+    return expect
+
+
 def phase_sw(desc: dict) -> dict:
     from acoss_tpu_torch.benchmarking.algorithms import EarlyFusion
     from acoss_tpu_torch.ops import alignment_cuda
@@ -1041,6 +1255,8 @@ def main() -> int:
     del snf_desc
     ef_desc, launches["early_fusion"] = phase_early_fusion(dev, fs)
     kernels["sw"] = phase_sw(ef_desc)
+    del ef_desc, fs
+    launches["datacos_geometry"] = phase_datacos_geometry(dev)
     # each kernel's launches are read from the path it was ported for
     for path, names in (("main_path", ("qmax", "dmax", "fused_crp")),
                         ("legacy", ("qmax_uneq",)),

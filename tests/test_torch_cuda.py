@@ -368,3 +368,56 @@ def test_aligner_dispatch_on_cuda(dev):
         want = getattr(alignment, f"{fn}_batch")(S, m, n, **kw)
         assert torch.equal(got, want), (fn, kw)
         assert float(one) == float(want[5]), (fn, kw)
+
+
+@pytest.mark.parametrize("engine", ["streamed", "bucketed", "hybrid"])
+def test_sweep_engine_on_the_card_equals_plain_sweep(dev, tmp_path, engine):
+    """Serra09 over an int8 store of Da-TACOS-length songs: every tile an
+    engine scores is on the card, and its scores equal the plain in-RAM
+    sweep of the same dequantized descriptors in the same song order (the
+    length-sorted one for the bucketed sweep) bit for bit."""
+    from acoss_tpu_torch.benchmarking import harness
+    from acoss_tpu_torch.data import LazySyntheticCorpus
+    from acoss_tpu_torch.data.descstore import (DescriptorStore,
+                                                extract_streamed,
+                                                upcast_stream)
+
+    corpus = LazySyntheticCorpus(n_cliques=3, clique_size=3,
+                                 n_distractors=7)
+    n = corpus.n_songs
+
+    class OnCard(Serra09):
+        def tile_scores(self, row, col, plain=False):
+            assert all(v.is_cuda for v in (*row.values(), *col.values()))
+            return super().tile_scores(row, col, plain)
+
+    def dequantized(d):
+        return upcast_stream({k: torch.from_numpy(np.array(v))
+                              for k, v in d.items()})
+
+    before = alignment_cuda.qmax_batch_cuda.launches
+    if engine == "bucketed":
+        sd = str(tmp_path / "stream")
+        got, perm = harness.run_pairwise_bucketed(
+            OnCard(), corpus.subset(np.arange(n)), n_buckets=2,
+            stream_dir=sd, stream_quant="int8", stream_min_bytes=16384,
+            return_perm=True, device=dev)
+        desc = harness._merge_bucket_descs(
+            [dequantized(DescriptorStore.open(f"{sd}/desc/bucket_{b:04d}"))
+             for b in range(2)], np.arange(n))
+    else:
+        store = extract_streamed(Serra09(), corpus, str(tmp_path / "store"),
+                                 quant="int8", half_min_bytes=16384,
+                                 device=dev)
+        assert store["chroma"].dtype == np.int8
+        got = (harness.run_pairwise_hybrid(OnCard(), store, n,
+                                           panel_songs=8, device=dev)
+               if engine == "hybrid" else
+               harness.run_pairwise(OnCard(), store, n, device=dev,
+                                    device_resident=False))
+        desc = dequantized(store)
+    torch.cuda.synchronize()
+    assert alignment_cuda.qmax_batch_cuda.launches - before == 3
+    want = harness.run_pairwise(Serra09(), desc, n, device=dev)
+    for k in want:
+        assert np.array_equal(np.asarray(got[k]), want[k]), k
