@@ -1,12 +1,13 @@
 """Command-line entry point of the port.
 
-`python -m acoss_tpu_torch benchmark -a {Serra09,EarlySNF,EarlyFusion} -d
- <features.npz> -s NAME [-c hpcp] [-t TILE] [--n_buckets N] [--cachedir DIR]
+`python -m acoss_tpu_torch benchmark -a ALGORITHM -d <features.npz>
+ -s NAME [-c hpcp] [-t TILE] [--n_buckets N] [--cachedir DIR]
  [--no-checkpoint] [--snf-precision {highest,default}]
  [--stream-dir DIR [--stream-chunk N] [--stream-half | --stream-int8]
  [--hybrid-panel P [--no-panel-prefetch]]] [--device cuda]`
-extracts descriptors, sweeps the pair grid on the device, prints
-MR/MRR/MDR/MAP per similarity type and appends them to
+extracts descriptors, sweeps the pair grid on the device (ALGORITHM is any
+name of `ALL_ALGORITHMS`; `-c` applies to the families that read chroma),
+prints MR/MRR/MDR/MAP per similarity type and appends them to
 `results_<NAME>.csv` (the reference's CSV schema). The sweep checkpoints
 to `<cachedir>/<algorithm>_<NAME>_ckpt.npz` and resumes from it.
 
@@ -113,9 +114,12 @@ def cmd_benchmark(args) -> int:
     from acoss_tpu_torch.data.store import FeatureSet
 
     cls = ALL_ALGORITHMS[args.algorithm]
-    kwargs = {"chroma_type": args.chroma_type}
+    params = inspect.signature(cls).parameters
+    # TGAlg and ANFScattering read novelty functions, not chroma
+    kwargs = {"chroma_type": args.chroma_type} \
+        if "chroma_type" in params else {}
     if args.snf_precision != "highest":
-        if "snf_precision" not in inspect.signature(cls).parameters:
+        if "snf_precision" not in params:
             print(f"--snf-precision is not supported by {args.algorithm}",
                   file=sys.stderr)
             return 1

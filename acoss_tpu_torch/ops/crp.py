@@ -1,5 +1,5 @@
-"""Cross-recurrence-plot math in PyTorch (the Serra09, EarlySNF and
-EarlyFusion subset of `acoss_tpu.ops.crp`).
+"""Cross-recurrence-plot math in PyTorch (the subset of `acoss_tpu.ops.crp`
+the ported algorithms use).
 
 Every function takes optional leading batch dimensions, so one call covers
 a whole tile of song pairs (the JAX package vmaps per-pair functions
@@ -13,7 +13,22 @@ CSM -> window -> binarize chain.
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def cuda_tf32(enabled: bool):
+    """Set TF32 matmuls on or off for the block and restore the caller's
+    setting after it."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def get_ssm(X: torch.Tensor) -> torch.Tensor:
@@ -55,6 +70,18 @@ def get_csm_tile(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
          + torch.sum(Y * Y, dim=-1)[None, :, None, :]
          - 2.0 * G)
     return torch.sqrt(torch.clamp_min(C, 0.0))
+
+
+def gram_sqdist(X: torch.Tensor) -> torch.Tensor:
+    """Squared Euclidean distances between all rows of X (N, d) from ONE
+    fp32 Gram: max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0), the squared norms
+    from a row reduction (the JAX package's formula; not `torch.cdist`,
+    which rounds differently). TF32 is off inside, whatever the caller's
+    setting: the JAX package computes the Gram at full fp32 precision."""
+    sq = torch.sum(X * X, dim=1)
+    with cuda_tf32(False):
+        G = torch.matmul(X, X.T)
+    return torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * G, 0.0)
 
 
 def get_csm_centered(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -196,3 +223,28 @@ def csm_to_binary_mutual(D: torch.Tensor, kappa: float, row_length=None,
     B1 = csm_to_binary(D, kappa, row_length, col_length)
     B2 = csm_to_binary(D.transpose(-1, -2), kappa, col_length, row_length)
     return B1 * B2.transpose(-1, -2)
+
+
+def chrompwr(X: torch.Tensor, P: float = 0.5, axis: int = -1) -> torch.Tensor:
+    """Raise the profile of chroma columns to a power, preserving norm
+    (FTM2D's helper): each column along `axis` is unit-normalized, raised
+    to the power P (sign kept), renormalized and rescaled to its original
+    L2 norm. Zero columns stay zero."""
+    nX = torch.sqrt(torch.sum(X * X, dim=axis, keepdim=True))
+    U = X / torch.where(nX == 0, 1.0, nX)
+    UP = torch.abs(U) ** P * torch.sign(U)
+    nUP = torch.sqrt(torch.sum(UP * UP, dim=axis, keepdim=True))
+    return UP / torch.where(nUP == 0, 1.0, nUP) * nX
+
+
+def chrompwr_np(X, P: float = 0.5, axis: int = -1) -> np.ndarray:
+    """Host-numpy `chrompwr` in float64 (descriptor extraction calls it
+    once per song)."""
+    X = np.asarray(X, dtype=np.float64)
+    nX = np.sqrt(np.sum(X * X, axis=axis, keepdims=True))
+    safe = np.where(nX == 0, 1.0, nX)
+    U = X / safe
+    UP = np.abs(U) ** P * np.sign(U)
+    nUP = np.sqrt(np.sum(UP * UP, axis=axis, keepdims=True))
+    nUP = np.where(nUP == 0, 1.0, nUP)
+    return UP / nUP * nX

@@ -21,13 +21,12 @@ rows are row-normalized by 1).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from acoss_tpu_torch.ops import crp_cuda
 from acoss_tpu_torch.ops.crp import _lengths as _per_matrix
+from acoss_tpu_torch.ops.crp import cuda_tf32
 
 _BIG = 1e30
 
@@ -268,18 +267,6 @@ def _get_S_stack(Ws: torch.Tensor, K, plain: bool = False) -> torch.Tensor:
     return V / norm[..., None]
 
 
-@contextlib.contextmanager
-def _cuda_tf32(enabled: bool):
-    """Set TF32 matmuls on or off for the block and restore the caller's
-    setting after it."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = enabled
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bfloat16 (to nearest, ties to even), kept in fp32."""
     return x.to(torch.bfloat16).to(torch.float32)
@@ -334,7 +321,7 @@ def snf_ws(Ws: torch.Tensor, K, niters: int = 20, reg_diag: bool = True,
             / max(F - 1, 1)
         return diffuse(Ss, mean_others)
 
-    with _cuda_tf32(fast):
+    with cuda_tf32(fast):
         if sequential and niters > 0:
             Ps = jacobi(Ps)
             for _ in range(niters - 1):

@@ -1,13 +1,19 @@
-"""2D wavelet scattering in PyTorch (port of `Scattering2D` of
-`acoss_tpu.ops.scattering`, the kymatio stand-in of the reference).
+"""1D and 2D wavelet scattering in PyTorch (port of `Scattering1D` and
+`Scattering2D` of `acoss_tpu.ops.scattering`, the kymatio stand-ins of the
+reference).
 
-A Mallat scattering network with kymatio-compatible output geometry: on
+2D: a Mallat scattering network with kymatio-compatible output geometry: on
 an (M, N) input with J scales and L orientations it gives
 1 + J L + L^2 J (J - 1) / 2 channels at (M / 2^J, N / 2^J), e.g. J=2, L=8
 on 64 x 64 -> (81, 16, 16). The Morlet filter banks are built by the same
 numpy code as the JAX package's, so both packages hold the same filter
 numbers; the FFTs run in complex64 (`torch.fft`), and agree with XLA's to
 float32 rounding.
+
+1D (ANFScattering's novelty functions): on a length-T input with J
+scales and Q wavelets an octave, order 0, a log-spaced first-order bank
+of J Q Morlets and an octave-spaced second-order bank (pairs with
+xi2 < xi1 / 2), each low-passed and subsampled to T / 2^J samples.
 """
 
 from __future__ import annotations
@@ -186,6 +192,84 @@ class Scattering2D:
         if S2s:
             outs.append(torch.cat(S2s, dim=-3))
         return torch.cat(outs, dim=-3)
+
+    def __call__(self, x) -> torch.Tensor:
+        return self._scatter(torch.as_tensor(x, dtype=torch.float32))
+
+
+def _morlet_1d(T, xi, sigma):
+    """Fourier-domain analytic Morlet (zero-mean corrected)."""
+    om = np.fft.fftfreq(T) * 2 * np.pi
+    g = np.exp(-(om - xi) ** 2 / (2 * sigma ** 2))
+    g0 = np.exp(-(om ** 2) / (2 * sigma ** 2))
+    # zero-mean correction: psi(omega=0) = 0
+    return g - np.exp(-(xi ** 2) / (2 * sigma ** 2)) * g0
+
+
+def _filter_bank_1d(T, J, Q):
+    """Log-spaced first-order bank (Q per octave), octave-spaced
+    second-order bank (Q2 = 1), gaussian phi at scale 2^J."""
+    xi_max = 0.35 * 2 * np.pi
+    n1 = J * Q
+    xis1 = xi_max * 2 ** (-np.arange(n1) / Q)
+    r = 2 ** (1.0 / Q)
+    sigmas1 = xis1 * (r - 1) / (r + 1) * 2
+    psi1 = np.stack([_morlet_1d(T, xi, s) for xi, s in zip(xis1, sigmas1)])
+    xis2 = xi_max * 2.0 ** (-np.arange(J))
+    sigmas2 = xis2 * (2 - 1) / (2 + 1) * 2
+    psi2 = np.stack([_morlet_1d(T, xi, s) for xi, s in zip(xis2, sigmas2)])
+    om = np.fft.fftfreq(T) * 2 * np.pi
+    sigma_phi = 0.35 * 2 * np.pi * 2.0 ** (-J)
+    phi = np.exp(-(om ** 2) / (2 * sigma_phi ** 2))
+    return (psi1.astype(np.float32), xis1,
+            psi2.astype(np.float32), xis2, phi.astype(np.float32))
+
+
+class Scattering1D:
+    """1D scattering transform; output (n_coeffs, T / 2^J).
+
+    Argument order of kymatio's `Scattering1D(J, T, Q)`. Call the instance
+    on an (..., T) float tensor; the filters follow the input's device
+    (one copy per device, made on first use)."""
+
+    def __init__(self, J: int, shape: int, Q: int = 8):
+        self.J = J
+        self.T = shape
+        self.Q = Q
+        psi1, xis1, psi2, xis2, phi = _filter_bank_1d(shape, J, Q)
+        # second-order pairs: xi2 < xi1 / 2
+        pairs = [(k1, k2) for k1 in range(len(xis1))
+                 for k2 in range(len(xis2)) if xis2[k2] < xis1[k1] / 2]
+        self.n_coeffs = 1 + len(xis1) + len(pairs)
+        self._host = {"psi1": psi1, "phi": phi}
+        if pairs:
+            k1s, k2s = (np.array(p) for p in zip(*pairs))
+            self._host.update(k1s=k1s, psi2=psi2[k2s])
+        self._host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                      for k, v in self._host.items()}
+        self._on: dict = {}
+
+    def filters(self, device: torch.device) -> dict:
+        device = torch.device(device)
+        if device not in self._on:
+            self._on[device] = {k: v.to(device)
+                                for k, v in self._host.items()}
+        return self._on[device]
+
+    def _pool(self, f: dict, x: torch.Tensor) -> torch.Tensor:
+        sm = torch.fft.ifft(torch.fft.fft(x) * f["phi"]).real
+        return sm[..., ::2 ** self.J]
+
+    def _scatter(self, x: torch.Tensor) -> torch.Tensor:
+        f = self.filters(x.device)
+        xf = torch.fft.fft(x)
+        U1 = torch.fft.ifft(xf[..., None, :] * f["psi1"]).abs()
+        outs = [self._pool(f, x)[..., None, :], self._pool(f, U1)]
+        if "psi2" in f:
+            u1f = torch.fft.fft(U1[..., f["k1s"], :])
+            U2 = torch.fft.ifft(u1f * f["psi2"]).abs()
+            outs.append(self._pool(f, U2))
+        return torch.cat(outs, dim=-2)
 
     def __call__(self, x) -> torch.Tensor:
         return self._scatter(torch.as_tensor(x, dtype=torch.float32))

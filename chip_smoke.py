@@ -24,6 +24,17 @@ songs, 210 tiles, 12,720 pairs):
   (fused CRP, binarizer, qmax, dmax), on the same descriptors;
 - `benchmark(EarlyFusion())`, constrained Smith-Waterman and late fusion
   (the SW kernel; the kNN row mask in the late SNF);
+- `benchmark(FTM2D())` and its zeropad ablation, and
+  `benchmark(ANFScattering())`: one fp32 Gram a channel (`full_scores`),
+  no kernel; the N x N matrices, MAP, and `full_scores` timed alone;
+- `benchmark(Simple())`, the asymmetric sweep: all 400 tiles of the
+  20 x 20 grid, no kernel;
+- `benchmark(ChenFusion())` and `benchmark(TGAlg())`: non-mutual row-kNN
+  CRPs (a row sort), then qmax and dmax (one launch each a tile), and
+  ChenFusion's late SNF (the kNN row mask, its (2, 160, 160) output held
+  bit for bit against the plain version); the first block-row recomputed
+  by the plain versions; one tile's wall and device time split into the
+  sort, qmax, dmax and the rest;
 
 then Serra09 at Da-TACOS song geometry through the sweep engines
 (`datacos_geometry`: 600 songs of a `LazySyntheticCorpus`, 40 cliques x
@@ -35,9 +46,10 @@ their plain references, with the device's idle share on the bucketed
 sweep).
 
 Every path runs with the launch counts set to 0 and checks them against
-the counts its design implies, checks retrieval (MAP), and the three
-`benchmark` paths recompute their first block-row with every kernel
-replaced by its plain version: the scores must be identical.
+the counts its design implies, checks retrieval (MAP), and the
+`benchmark` paths with kernels recompute their first block-row with
+every kernel replaced by its plain version: the scores must be
+identical.
 
 Each phase prints one line or a few; any failure raises, so the script
 exits nonzero and prints no result. The last lines are the card as
@@ -150,14 +162,17 @@ def _counted(path: str, run, expect: dict):
 
 
 @contextlib.contextmanager
-def _spy(module, name: str, calls: list):
+def _spy(module, name: str, calls: list, outs: list | None = None):
     """Record the arguments of every call of module.<name> (the call
-    still goes through)."""
+    still goes through), and its result in `outs` if given."""
     real = getattr(module, name)
 
     def spy(*args, **kwargs):
         calls.append((args, kwargs))
-        return real(*args, **kwargs)
+        out = real(*args, **kwargs)
+        if outs is not None:
+            outs.append(out)
+        return out
 
     # a wrapper counts its launches through its module-level name, which
     # is the spy while it is in place
@@ -519,10 +534,18 @@ def _first_block_row(algo, desc: dict, Ds: dict, n_songs: int) -> int:
     return n_tiles
 
 
-def _benchmark_path(name: str, algo, dev, fs, expect: dict):
+def _mostly_positive(scores) -> bool:
+    """Aligner scores: most pairs have some alignment."""
+    return (scores > 0).mean() > 0.9
+
+
+def _benchmark_path(name: str, algo, dev, fs, expect: dict,
+                    plausible=_mostly_positive):
     """`benchmark(algo)` with counted launches; returns its stats, the
-    swept (lower-triangle) score matrices from its ledger, the stage
-    times and the launch counts."""
+    swept score matrices from its ledger (the lower triangle of a
+    symmetric algorithm, every tile of an asymmetric one), the stage times
+    and the launch counts. Every swept pair's score must be finite and
+    the swept scores of each type `plausible`."""
     from acoss_tpu_torch.benchmarking.harness import benchmark
 
     times = {}
@@ -534,15 +557,34 @@ def _benchmark_path(name: str, algo, dev, fs, expect: dict):
         with np.load(ckpt) as z:
             done = z["done"]
             Ds = {k: z[f"D::{k}"] for k in algo.SIMILARITY_TYPES}
-    n_tiles = -(-fs.n_songs // algo.TILE)
-    if not done[np.tril_indices(n_tiles)].all():
+    n, n_tiles = fs.n_songs, -(-fs.n_songs // algo.TILE)
+    swept = done[np.tril_indices(n_tiles)] if algo.SYMMETRIC else done
+    if not swept.all():
         raise AssertionError(f"{name}: the ledger misses tiles")
+    pairs = np.tril_indices(n, -1) if algo.SYMMETRIC \
+        else ~np.eye(n, dtype=bool)
     for k, D in Ds.items():
-        low = D[np.tril_indices(fs.n_songs, -1)]
-        if D.shape != (fs.n_songs,) * 2 or not np.isfinite(D).all() \
-                or not (low > 0).mean() > 0.9:
+        if D.shape != (n, n) or not np.isfinite(D).all() \
+                or not plausible(D[pairs]):
             raise AssertionError(f"{name} {k}: implausible score matrix")
     return stats, Ds, times, counts
+
+
+def _keeping(cls):
+    """A subclass of the algorithm `cls` that keeps the descriptors it
+    extracted (`desc`) and the score matrices handed to its post_process
+    (`Ds`)."""
+    class Keeping(cls):
+        def extract_descriptors(self, fs, device="cuda"):
+            self.desc = super().extract_descriptors(fs, device=device)
+            return self.desc
+
+        def post_process(self, Ds, desc, device="cuda"):
+            self.Ds = Ds
+            return super().post_process(Ds, desc, device=device)
+
+    Keeping.__name__ = cls.__name__
+    return Keeping
 
 
 def _check_map(name: str, stats: dict, floors: dict) -> None:
@@ -587,12 +629,7 @@ def phase_early_snf(dev, fs) -> tuple[dict, dict]:
     from acoss_tpu_torch.benchmarking.algorithms import EarlySNF
     from acoss_tpu_torch.convert import descriptors_from_numpy
 
-    class KeepDescriptors(EarlySNF):
-        def extract_descriptors(self, fs, device="cuda"):
-            self.desc = super().extract_descriptors(fs, device=device)
-            return self.desc
-
-    algo = KeepDescriptors()
+    algo = _keeping(EarlySNF)()
     T = _swept_tiles(fs.n_songs, algo.TILE)
     torch.cuda.reset_peak_memory_stats()
     stats, Ds, times, counts = _benchmark_path(
@@ -930,12 +967,7 @@ def phase_early_fusion(dev, fs) -> tuple[dict, dict]:
     from acoss_tpu_torch.benchmarking.algorithms import EarlyFusion
     from acoss_tpu_torch.convert import descriptors_from_numpy
 
-    class KeepDescriptors(EarlyFusion):
-        def extract_descriptors(self, fs, device="cuda"):
-            self.desc = super().extract_descriptors(fs, device=device)
-            return self.desc
-
-    algo = KeepDescriptors()
+    algo = _keeping(EarlyFusion)()
     T = _swept_tiles(fs.n_songs, algo.TILE)
     torch.cuda.reset_peak_memory_stats()
     # one SW launch a tile, one kNN row-mask launch in each late SNF
@@ -1227,6 +1259,201 @@ def phase_sw(desc: dict) -> dict:
                    _aligner_bound("sw", S, m, n))
 
 
+def _stage_lines(name: str, label: str, dev, fs, stats: dict, times: dict,
+                 counts: dict, note: str = "") -> None:
+    """A new family's lines: launches and MAP per channel, then its
+    extract / sweep / eval seconds and fully-scored pairs/s."""
+    pairs = fs.n_songs * (fs.n_songs - 1) // 2
+    _phase(name, f"benchmark({label}) on {dev}: {fs.n_songs} songs, "
+           f"{pairs} pairs{note}; launches "
+           + (", ".join(f"{k} {v}" for k, v in counts.items()) or "none")
+           + "; " + ", ".join(f"{k} MAP {s.map:.4f} MR {s.mr:.3f}"
+                              for k, s in stats.items()))
+    _phase(name, f"extract {times['extract']:.2f} s, sweep "
+           f"{times['sweep']:.2f} s, eval {times['eval']:.2f} s; "
+           f"{pairs / times['sweep']:.1f} fully-scored pairs/s")
+
+
+def _full_scores_path(name: str, label: str, algo, dev, fs, floors: dict,
+                      plausible) -> dict:
+    """`benchmark(algo)` of a family whose sweep is one Gram
+    (`full_scores`): no kernel launches; every N x N matrix finite with a
+    zero diagonal and `plausible` off it; MAP floors; `full_scores` timed
+    alone by CUDA events. Returns the launch counts (none)."""
+    from acoss_tpu_torch.benchmarking.harness import benchmark
+    from acoss_tpu_torch.convert import descriptors_from_numpy
+
+    times = {}
+    stats, counts = _counted(name, lambda: benchmark(
+        algo, fs, device=dev, times=times), {})
+    n = fs.n_songs
+    off = ~np.eye(n, dtype=bool)
+    if sorted(algo.Ds) != sorted(algo.SIMILARITY_TYPES):
+        raise AssertionError(f"{name}: matrices {sorted(algo.Ds)}")
+    for k, D in algo.Ds.items():
+        if D.shape != (n, n) or not np.isfinite(D).all() \
+                or np.diag(D).any() or not plausible(D[off]):
+            raise AssertionError(f"{name} {k}: implausible score matrix")
+    _check_map(name, stats, floors)
+    desc = descriptors_from_numpy(algo.desc, dev)
+    ms = _cuda_ms(lambda: algo.full_scores(desc), 10)
+    dims = ", ".join(f"{k} {tuple(v.shape)}" for k, v in desc.items())
+    _stage_lines(name, label, dev, fs, stats, times, counts,
+                 f", one Gram a channel ({dims}): full_scores {ms:.4f} ms")
+    return counts
+
+
+def phase_ftm2d(dev, fs) -> dict:
+    """benchmark(FTM2D()) (BASELINE config 1's algorithm) and its zeropad
+    ablation: the shingle Gram exp(-||s_i - s_j||^2) in (0, 1]."""
+    from acoss_tpu_torch.benchmarking.algorithms import FTM2D
+
+    def in_unit(v) -> bool:
+        return bool(((v > 0) & (v <= 1)).all())
+
+    counts = _full_scores_path("ftm2d", "FTM2D", _keeping(FTM2D)(), dev,
+                               fs, {"": 0.99}, in_unit)
+    _full_scores_path("ftm2d_zeropad", 'FTM2D(mode="zeropad")',
+                      _keeping(FTM2D)(mode="zeropad"), dev, fs, {"": 0.0},
+                      in_unit)
+    return counts
+
+
+def phase_anf(dev, fs) -> dict:
+    """benchmark(ANFScattering()): host resampling, the 1D scattering on
+    the card in chunks of 64 songs, Euclidean distances from one Gram a
+    channel."""
+    from acoss_tpu_torch.benchmarking.algorithms import ANFScattering
+
+    torch.cuda.reset_peak_memory_stats()
+    counts = _full_scores_path(
+        "anf_scattering", "ANFScattering", _keeping(ANFScattering)(), dev,
+        fs, {"": 0.95}, lambda v: bool((v > 0).all()))
+    _phase("anf_scattering", f"peak device memory "
+           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+           f"(JAX record MAP 0.988-1.000)")
+    return counts
+
+
+def phase_simple(dev, fs) -> dict:
+    """benchmark(Simple()), the asymmetric sweep: every tile of the full
+    grid scored, the score matrix not symmetric, -median profiles <= 0."""
+    from acoss_tpu_torch.benchmarking.algorithms import Simple
+
+    class Counted(Simple):
+        tiles = 0
+
+        def tile_scores(self, row, col):
+            Counted.tiles += 1
+            return super().tile_scores(row, col)
+
+    algo = Counted()
+    stats, Ds, times, counts = _benchmark_path(
+        "simple", algo, dev, fs, {},
+        lambda v: bool((v <= 0).all() and (v < 0).mean() > 0.9))
+    n_tiles = -(-fs.n_songs // algo.TILE)
+    D = Ds["main"]
+    upper = np.triu_indices(fs.n_songs, 1)
+    if Counted.tiles != n_tiles * n_tiles \
+            or np.array_equal(D[upper], D.T[upper]):
+        raise AssertionError(f"simple: {Counted.tiles} tiles for a "
+                             f"{n_tiles} x {n_tiles} grid, or a symmetric "
+                             f"matrix")
+    _check_map("simple", stats, {"": 0.99})
+    _stage_lines("simple", "Simple", dev, fs, stats, times, counts,
+                 f", {Counted.tiles} tiles (the full {n_tiles} x {n_tiles} "
+                 f"grid, asymmetric)")
+    return counts
+
+
+def _tile_split(algo, row: dict, col: dict, reps: int = 7) -> str:
+    """One tile of `algo` on the card: the median wall of `reps` warm
+    calls, and one profiled call's device time, split into the row sorts
+    of the non-mutual binarization, the qmax and dmax kernels and the
+    rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        algo.tile_scores(row, col)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        algo.tile_scores(row, col)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        algo.tile_scores(row, col)
+        torch.cuda.synchronize()
+    split = {"sort": 0.0, "qmax": 0.0, "dmax": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        part = next((p for p in ("qmax", "dmax") if f"{p}_kernel" in key),
+                    "sort" if "sort" in key else "other")
+        split[part] += e.self_device_time_total / 1e3
+    return (f"tile wall median {float(np.median(walls)):.3f} ms, device "
+            f"{sum(split.values()):.3f} ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+
+def _row_knn_path(name: str, algo, dev, fs, floors: dict,
+                  extra_expect: dict | None = None, note: str = "") -> dict:
+    """benchmark(algo) of a non-mutual row-kNN family that ends in qmax and
+    dmax: one qmax and one dmax launch a tile (and `extra_expect`, such as
+    the late SNF's kNN mask), MAP floors, every kNN-mask call of the run
+    bit-equal to its plain version on the inputs it got, the first
+    block-row recomputed by the plain versions, a tile's wall and device
+    split."""
+    from acoss_tpu_torch.convert import descriptors_from_numpy
+    from acoss_tpu_torch.ops import crp_cuda
+
+    T = _swept_tiles(fs.n_songs, algo.TILE)
+    expect = {"qmax": T, "dmax": T, **(extra_expect or {})}
+    calls, outs = [], []
+    with _spy(crp_cuda, "knn_mask_matrix_batch", calls, outs):
+        stats, Ds, times, counts = _benchmark_path(name, algo, dev, fs,
+                                                   expect)
+    if len(calls) != expect.get("knn_mask", 0):
+        raise AssertionError(f"{name}: {len(calls)} kNN-mask calls")
+    for ((W, k), kw), got in zip(calls, outs):
+        want = crp_cuda.knn_mask_matrix_ref(W, k, **kw)
+        if not (torch.equal(got, want)
+                and torch.equal(torch.signbit(got), torch.signbit(want))):
+            raise AssertionError(f"{name}: knn_mask kernel != plain on the "
+                                 f"path's {tuple(W.shape)} W: "
+                                 f"{int((got != want).sum())} cells differ")
+        _phase(name, f"knn_mask kernel == plain bit for bit on the path's "
+               f"{tuple(W.shape)} W (k {k.tolist()})")
+    _check_map(name, stats, floors)
+    _stage_lines(name, algo.NAME, dev, fs, stats, times, counts,
+                 f", {T} tiles{note}")
+    desc = descriptors_from_numpy(algo.desc, dev)
+    n = _first_block_row(algo, desc, Ds, fs.n_songs)
+    _phase(name, f"first block-row ({n} tiles) recomputed by the plain "
+           f"versions on {dev}: identical scores")
+    _phase(name, _tile_split(algo, *_tile(desc)))
+    return counts
+
+
+def phase_chen_fusion(dev, fs) -> dict:
+    from acoss_tpu_torch.benchmarking.algorithms import ChenFusion
+
+    # one (2, N, N) late SNF truncation
+    return _row_knn_path("chen_fusion", _keeping(ChenFusion)(), dev, fs,
+                         {"": 0.99}, {"knn_mask": 1})
+
+
+def phase_tgalg(dev, fs) -> dict:
+    from acoss_tpu_torch.benchmarking.algorithms import TGAlg
+
+    return _row_knn_path("tgalg", _keeping(TGAlg)(), dev, fs,
+                         {"tempogram_sflux": 0.15, "": 0.0},
+                         note=" (JAX record MAP 0.26-0.27)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, kind = phase_environment()
@@ -1255,7 +1482,13 @@ def main() -> int:
     del snf_desc
     ef_desc, launches["early_fusion"] = phase_early_fusion(dev, fs)
     kernels["sw"] = phase_sw(ef_desc)
-    del ef_desc, fs
+    del ef_desc
+    for name, phase in (("ftm2d", phase_ftm2d), ("simple", phase_simple),
+                        ("chen_fusion", phase_chen_fusion),
+                        ("tgalg", phase_tgalg),
+                        ("anf_scattering", phase_anf)):
+        launches[name] = phase(dev, fs)
+    del fs
     launches["datacos_geometry"] = phase_datacos_geometry(dev)
     # each kernel's launches are read from the path it was ported for
     for path, names in (("main_path", ("qmax", "dmax", "fused_crp")),
@@ -1266,6 +1499,10 @@ def main() -> int:
         for name in names:
             kernels[name]["launches"] = launches[path][name]
             kernels[name]["path"] = path
+    # and the launches of every path that ran the kernel
+    for name, k in kernels.items():
+        k["paths"] = {path: c[name] for path, c in launches.items()
+                      if c.get(name)}
     # the order of redesign work: the time each kernel spends above its
     # bound over its path's launches
     above = {k["name"]: k["launches"] * (k["ms"] - k["bound_ms"])

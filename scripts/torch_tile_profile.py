@@ -2,15 +2,17 @@
 whole sweeps.
 
     python3 scripts/torch_tile_profile.py [--trace-dir DIR] [--reps 7]
-        [--paths serra09,early_snf,early_snf_fast,serra09_full,early_fusion]
-        [--sweeps N]
+        [--paths serra09,early_snf,early_snf_fast,serra09_full,early_fusion,
+                 chen_fusion,tgalg,simple] [--sweeps N]
 
 Run from the root of a checkout on a machine with a CUDA device. It builds
 the covers80-geometry corpus of `chip_smoke.py` (160 songs), extracts the
-descriptors the chosen paths need (Serra09's and EarlySNF's on the card,
-L = 512; EarlyFusion's on the host, L = 576), and for tile (1, 0) (8 x 8
-pairs) of Serra09 (the main path, defaults), EarlySNF (parity), EarlySNF
-(throughput), Serra09(do_ssms=True) and EarlyFusion prints the median
+descriptors the chosen paths need (Serra09's, EarlySNF's, ChenFusion's
+and TGAlg's with the card, L = 512; EarlyFusion's on the host, L = 576;
+Simple's on the host, L = 192), and for tile (1, 0) (8 x 8 pairs) of
+Serra09 (the main path, defaults), EarlySNF (parity), EarlySNF
+(throughput), Serra09(do_ssms=True), EarlyFusion, ChenFusion, TGAlg and
+Simple prints the median
 wall of `--reps` warm tiles, one `torch.profiler` tile's device time by
 kernel and its idle share (1 - summed kernel time / profiled wall), and
 the peak device memory. With --sweeps N it also times N whole
@@ -34,16 +36,21 @@ sys.path.insert(0, os.getcwd())
 
 import chip_smoke  # noqa: E402
 from acoss_tpu_torch.benchmarking.algorithms import (  # noqa: E402
-    EarlyFusion, EarlySNF, Serra09)
+    ChenFusion, EarlyFusion, EarlySNF, Serra09, Simple, TGAlg)
 from acoss_tpu_torch.benchmarking.harness import run_pairwise  # noqa: E402
 from acoss_tpu_torch.convert import descriptors_from_numpy  # noqa: E402
 
 
-PATHS = {"serra09": Serra09,
-         "early_snf": EarlySNF,
-         "early_snf_fast": lambda: EarlySNF(snf_precision="default"),
-         "serra09_full": lambda: Serra09(do_ssms=True),
-         "early_fusion": EarlyFusion}
+# path -> (its algorithm, the algorithm whose descriptors it reads)
+PATHS = {"serra09": (Serra09, Serra09),
+         "early_snf": (EarlySNF, EarlySNF),
+         "early_snf_fast": (lambda: EarlySNF(snf_precision="default"),
+                            EarlySNF),
+         "serra09_full": (lambda: Serra09(do_ssms=True), EarlySNF),
+         "early_fusion": (EarlyFusion, EarlyFusion),
+         "chen_fusion": (ChenFusion, ChenFusion),
+         "tgalg": (TGAlg, TGAlg),
+         "simple": (Simple, Simple)}
 
 
 def _kernel_rows(prof) -> list:
@@ -90,10 +97,8 @@ def main() -> int:
     fs = chip_smoke._corpus()
     descs = {}
     for name in paths:
-        algo = PATHS[name]()
-        # the three SNF-slice paths share EarlySNF's descriptors
-        key = {"serra09": Serra09,
-               "early_fusion": EarlyFusion}.get(name, EarlySNF)
+        make, key = PATHS[name]
+        algo = make()
         if key not in descs:
             t0 = time.perf_counter()
             descs[key] = descriptors_from_numpy(

@@ -7,8 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from acoss_tpu_torch.benchmarking.algorithms import (EarlyFusion, EarlySNF,
-                                                     Serra09)
+from acoss_tpu_torch.benchmarking.algorithms import (ANFScattering,
+                                                     ChenFusion, EarlyFusion,
+                                                     EarlySNF, FTM2D, Serra09,
+                                                     Simple, TGAlg)
 from acoss_tpu_torch.convert import descriptors_from_numpy
 from acoss_tpu_torch.data import make_synthetic_dataset
 from acoss_tpu_torch.ops import alignment, alignment_cuda, crp_cuda
@@ -421,3 +423,104 @@ def test_sweep_engine_on_the_card_equals_plain_sweep(dev, tmp_path, engine):
     want = harness.run_pairwise(Serra09(), desc, n, device=dev)
     for k in want:
         assert np.array_equal(np.asarray(got[k]), want[k]), k
+
+
+# the families whose sweep is one fp32 Gram, with their CPU tolerance
+# (ANF's distances: rtol 1e-5 and 1e-5 of the largest, see test_torch_anf)
+GRAM_FAMILIES = {"FTM2D": (FTM2D, 0.0), "ANFScattering": (ANFScattering,
+                                                           1e-5)}
+
+
+@pytest.mark.parametrize("family", list(GRAM_FAMILIES))
+def test_full_scores_gram_keeps_tf32_off(dev, family):
+    """`full_scores` on the card with TF32 switched ON globally (as a
+    caller of `run_pairwise` without `benchmark()` may leave it) equals
+    the plain CPU Gram to rtol 1e-5: the function switches TF32 off for
+    its Gram and gives the caller's setting back."""
+    cls, atol_frac = GRAM_FAMILIES[family]
+    fs = make_synthetic_dataset(n_cliques=4, clique_size=2, seed=1,
+                                base_duration=60.0)
+    algo = cls()
+    desc = algo.extract_descriptors(fs, device=dev)
+    want = algo.full_scores(descriptors_from_numpy(desc, "cpu"))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = algo.full_scores(descriptors_from_numpy(desc, dev))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    off = ~torch.eye(fs.n_songs, dtype=torch.bool)
+    for k in algo.SIMILARITY_TYPES:
+        g, w = got[k].cpu()[off], want[k][off]
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=atol_frac * float(w.max()))
+
+
+@pytest.mark.parametrize("family", ["ChenFusion", "TGAlg"])
+def test_row_knn_tile_on_the_card_equals_cpu(dev, family):
+    """ChenFusion's and TGAlg's tile on the card (one qmax and one dmax
+    launch on the stacked CRPs; the non-mutual row kNN a `torch.sort`)
+    gives the CPU tile's scores bit for bit, and the kernels' plain
+    versions on the card the same."""
+    cls = {"ChenFusion": ChenFusion, "TGAlg": TGAlg}[family]
+    fs = make_synthetic_dataset(n_cliques=3, clique_size=2, seed=1,
+                                base_duration=300.0, beat_period=30.0)
+    algo = cls()
+    desc = algo.extract_descriptors(fs, device="cpu")
+    cpu = descriptors_from_numpy(desc, "cpu")
+    card = descriptors_from_numpy(desc, dev)
+    q, d = alignment_cuda.qmax_batch_cuda, alignment_cuda.dmax_batch_cuda
+    before = (q.launches, d.launches)
+    got = algo.tile_scores(card, card)
+    torch.cuda.synchronize()
+    assert (q.launches, d.launches) == (before[0] + 1, before[1] + 1)
+    plain = algo.tile_scores(card, card, plain=True)
+    want = algo.tile_scores(cpu, cpu)
+    for k in algo.SIMILARITY_TYPES:
+        assert torch.equal(got[k], plain[k]), k
+        assert torch.equal(got[k].cpu(), want[k]), k
+        assert float(got[k].min()) > 0, k
+
+
+def test_chen_fusion_late_snf_on_the_card(dev):
+    """ChenFusion's late SNF on the card (the kNN row-mask kernel, one
+    launch) against the CPU run: rtol 1e-4, as the SNF tests state."""
+    rng = np.random.default_rng(3)
+    n = 40
+    Ds = {}
+    for k in ChenFusion.SIMILARITY_TYPES:
+        D = rng.random((n, n)).astype(np.float32) * 40 + 1
+        Ds[k] = np.tril(D, -1) + np.tril(D, -1).T
+    desc = {"length": rng.integers(200, 500, n).astype(np.int32)}
+    before = crp_cuda.knn_mask_matrix_batch.launches
+    got = ChenFusion().post_process(Ds, desc, device=dev)
+    assert crp_cuda.knn_mask_matrix_batch.launches == before + 1
+    want = ChenFusion().post_process(Ds, desc, device="cpu")
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-7)
+
+
+def test_simple_asymmetric_sweep_on_the_card_equals_cpu(dev):
+    """Simple's full-grid (asymmetric) sweep on the card equals the CPU
+    sweep of the same descriptors, rtol 1e-5 (fp32 CSMs of two
+    matmuls); every tile of the 3 x 3 grid is scored."""
+    from acoss_tpu_torch.benchmarking.harness import run_pairwise
+
+    fs = make_synthetic_dataset(n_cliques=6, clique_size=2, seed=2,
+                                base_duration=120.0)
+    algo = Simple()
+    desc = algo.extract_descriptors(fs, device=dev)
+    calls = []
+
+    class Counted(Simple):
+        def tile_scores(self, row, col):
+            assert row["feat"].is_cuda and col["feat"].is_cuda
+            calls.append(1)
+            return super().tile_scores(row, col)
+
+    got = run_pairwise(Counted(), desc, fs.n_songs, tile=5, device=dev)
+    want = run_pairwise(algo, desc, fs.n_songs, tile=5, device="cpu")
+    assert len(calls) == 9
+    np.testing.assert_allclose(got["main"], want["main"], rtol=1e-5, atol=0)
+    off = ~np.eye(fs.n_songs, dtype=bool)
+    assert (got["main"][off] < 0).all()

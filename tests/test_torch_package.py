@@ -37,6 +37,12 @@ def test_port_imports_no_jax():
               "acoss_tpu_torch.benchmarking.algorithms.serra09",
               "acoss_tpu_torch.benchmarking.algorithms.early_snf",
               "acoss_tpu_torch.benchmarking.algorithms.early_fusion",
+              "acoss_tpu_torch.benchmarking.algorithms.ftm2d",
+              "acoss_tpu_torch.benchmarking.algorithms.simple",
+              "acoss_tpu_torch.benchmarking.algorithms.chen_fusion",
+              "acoss_tpu_torch.benchmarking.algorithms.tempogram",
+              "acoss_tpu_torch.benchmarking.algorithms.anf_scattering",
+              "acoss_tpu_torch.features.rhythm",
               "acoss_tpu_torch.ops.similarity_legacy",
               "acoss_tpu_torch.native"):
         assert m in out["modules"]
