@@ -1,4 +1,5 @@
-"""Cover-song scoring algorithms ported so far (see ROADMAP.md, Queue A)."""
+"""Cover-song scoring algorithms: all twelve classes of the JAX package's
+`acoss_tpu.benchmarking.algorithms`, keyed by NAME as there."""
 
 from acoss_tpu_torch.benchmarking.algorithms.anf_scattering import \
     ANFScattering  # noqa: F401
@@ -13,11 +14,18 @@ from acoss_tpu_torch.benchmarking.algorithms.serra09 import \
     Serra09  # noqa: F401
 from acoss_tpu_torch.benchmarking.algorithms.simple import \
     Simple  # noqa: F401
+from acoss_tpu_torch.benchmarking.algorithms.struc_ftm2d import (  # noqa: F401
+    StrucFTM2D, StrucShingles)
+from acoss_tpu_torch.benchmarking.algorithms.struc_laplacian import \
+    StrucLaplacian  # noqa: F401
+from acoss_tpu_torch.benchmarking.algorithms.struc_scattering import \
+    StrucScattering  # noqa: F401
 from acoss_tpu_torch.benchmarking.algorithms.tempogram import \
     TGAlg  # noqa: F401
 
 ALL_ALGORITHMS = {
     cls.NAME: cls for cls in (
         Serra09, FTM2D, ChenFusion, EarlySNF, EarlyFusion, Simple, TGAlg,
-        ANFScattering)
+        ANFScattering, StrucFTM2D, StrucShingles, StrucScattering,
+        StrucLaplacian)
 }

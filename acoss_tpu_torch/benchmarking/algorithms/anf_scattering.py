@@ -106,7 +106,8 @@ class ANFScattering(CoverAlgorithm):
             out[f"{key}_shingle"] = sh.astype(np.float32)
         return out
 
-    def full_scores(self, desc: dict) -> dict:
+    def full_scores(self, desc: dict,
+                    device: str | torch.device = "cuda") -> dict:
         """Euclidean distances of every pair of each channel's fp32
         descriptors on the device: (N, N) each."""
         return {k: torch.sqrt(gram_sqdist(desc[k]))

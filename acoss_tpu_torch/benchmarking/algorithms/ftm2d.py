@@ -122,7 +122,8 @@ class FTM2D(CoverAlgorithm):
         ])
         return {"shingle": shingles}
 
-    def full_scores(self, desc: dict) -> dict:
+    def full_scores(self, desc: dict,
+                    device: str | torch.device = "cuda") -> dict:
         """exp(-||s_i - s_j||^2) of every pair, from the fp32 shingles on
         the device: (N, N)."""
         return {"main": torch.exp(-gram_sqdist(desc["shingle"]))}

@@ -30,8 +30,10 @@ Algorithms implement:
   - ``tile_scores(row_desc, col_desc) -> dict[type, (bi, bj) tensor]``:
     scoring of the full cross product of a row block against a column
     block of songs, on the descriptors' device.
-  - optionally ``full_scores(desc) -> dict[type, (N, N)]``: every score
-    in one call, from the whole corpus as tensors on the device.
+  - optionally ``full_scores(desc, device) -> dict[type, (N, N)]``:
+    every score in one call, from the whole corpus: its array leaves as
+    tensors on `device`, any other leaf (a list of ragged per-song
+    arrays, an int) as extracted.
 """
 
 from __future__ import annotations
@@ -100,6 +102,17 @@ def _upload(desc: dict, device) -> dict:
     return descriptors_from_numpy(
         {k: np.array(v) if isinstance(v, np.memmap) else v
          for k, v in desc.items()}, device)
+
+
+def _upload_full(desc: dict, device) -> dict:
+    """The corpus as `full_scores` takes it: array leaves uploaded to
+    `device` and restored to fp32 (`upcast_stream`), other leaves (the
+    Struc* shingles' per-song lists and their int width) passed through
+    untouched."""
+    arrays = {k: v for k, v in desc.items()
+              if isinstance(v, (np.ndarray, torch.Tensor))}
+    return {**{k: v for k, v in desc.items() if k not in arrays},
+            **upcast_stream(_upload(arrays, device))}
 
 
 def _device_blocks(desc: dict, n: int, tile: int, device):
@@ -350,13 +363,14 @@ def run_pairwise(
     restricts the sweep to a subset of tiles (a process shard), and
     `skip_symmetrize` leaves the upper triangle unmirrored.
 
-    An algorithm with `full_scores` gets the whole corpus as fp32 tensors
-    on `device` in one call instead.
+    An algorithm with `full_scores` gets the whole corpus in one call
+    instead: array leaves as fp32 tensors on `device`, other leaves as
+    they are.
     """
     if algorithm.full_scores is not None:
         Ds = {k: np.array(_host(v), dtype=np.float32)
               for k, v in algorithm.full_scores(
-                  upcast_stream(_upload(desc, device))).items()}
+                  _upload_full(desc, device), device=device).items()}
         for D in Ds.values():
             np.fill_diagonal(D, 0.0)
         return Ds

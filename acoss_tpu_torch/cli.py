@@ -6,7 +6,8 @@
  [--stream-dir DIR [--stream-chunk N] [--stream-half | --stream-int8]
  [--hybrid-panel P [--no-panel-prefetch]]] [--device cuda]`
 extracts descriptors, sweeps the pair grid on the device (ALGORITHM is any
-name of `ALL_ALGORITHMS`; `-c` applies to the families that read chroma),
+name of `ALL_ALGORITHMS` or its class name, so StructureLaplacian and
+StrucLaplacian both work; `-c` applies to the families that read chroma),
 prints MR/MRR/MDR/MAP per similarity type and appends them to
 `results_<NAME>.csv` (the reference's CSV schema). The sweep checkpoints
 to `<cachedir>/<algorithm>_<NAME>_ckpt.npz` and resumes from it.
@@ -25,6 +26,15 @@ import argparse
 import inspect
 import os
 import sys
+
+
+def _algorithms() -> dict:
+    """Every algorithm class by its NAME (the JAX package's keys) and by
+    its class name (StrucLaplacian's NAME is StructureLaplacian)."""
+    from acoss_tpu_torch.benchmarking.algorithms import ALL_ALGORITHMS
+
+    return {**{c.__name__: c for c in ALL_ALGORITHMS.values()},
+            **ALL_ALGORITHMS}
 
 
 def _stream_quant(args) -> str | None:
@@ -109,11 +119,10 @@ def _cmd_stream(args, algo, fs, ckpt: str | None, csv: str) -> int:
 def cmd_benchmark(args) -> int:
     import torch
 
-    from acoss_tpu_torch.benchmarking.algorithms import ALL_ALGORITHMS
     from acoss_tpu_torch.benchmarking.harness import benchmark
     from acoss_tpu_torch.data.store import FeatureSet
 
-    cls = ALL_ALGORITHMS[args.algorithm]
+    cls = _algorithms()[args.algorithm]
     params = inspect.signature(cls).parameters
     # TGAlg and ANFScattering read novelty functions, not chroma
     kwargs = {"chroma_type": args.chroma_type} \
@@ -143,13 +152,11 @@ def cmd_benchmark(args) -> int:
 
 
 def main(argv=None) -> int:
-    from acoss_tpu_torch.benchmarking.algorithms import ALL_ALGORITHMS
-
     parser = argparse.ArgumentParser(prog="acoss_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     b = sub.add_parser("benchmark", help="run a cover-song benchmark")
     b.add_argument("-a", "--algorithm", required=True,
-                   choices=sorted(ALL_ALGORITHMS))
+                   choices=sorted(_algorithms()))
     b.add_argument("-d", "--datapath", required=True,
                    help="FeatureSet .npz (as written by either package)")
     b.add_argument("-s", "--shortname", default="covers80")

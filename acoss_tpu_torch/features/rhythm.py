@@ -95,3 +95,12 @@ def tempogram_aggregated_batch(envelopes: list, boundaries_list: list,
             counts = preps[i][2]
             out[i] = sums[b, :counts.size] / counts[:, None]
     return out
+
+
+def tempogram_aggregated(onset_envelope: np.ndarray, boundaries: np.ndarray,
+                         win_length: int = 384,
+                         device: str | torch.device = "cuda") -> np.ndarray:
+    """One song's `tempogram_aggregated_batch`: the (n_segments,
+    win_length) means of its tempogram frames between boundary frames."""
+    return tempogram_aggregated_batch([onset_envelope], [boundaries],
+                                      win_length, device=device)[0]

@@ -149,6 +149,24 @@ def get_csm_blocked_oti(X: torch.Tensor, Y: torch.Tensor, C1: torch.Tensor,
     return csm_fn(X1.reshape(oti.shape + (M, D)), Y)
 
 
+def sliding_window(X: torch.Tensor, win: int) -> torch.Tensor:
+    """Delay embedding (..., N, d) -> (..., N - win + 1, d * win): column
+    block i holds rows i .. i + N - win of X (`CRPUtils.py:8-22`; the
+    layout of librosa's `stack_memory` that ChenFusion uses)."""
+    M = X.shape[-2] - win + 1
+    return torch.cat([X[..., i:i + M, :] for i in range(win)], dim=-1)
+
+
+def sliding_window_padded(X: torch.Tensor, win: int) -> torch.Tensor:
+    """`sliding_window` keeping the leading N rows: X is zero-extended by
+    win - 1 rows first, so rows past length - win + 1 of a padded batch
+    hold garbage from the padding (callers mask them)."""
+    N = X.shape[-2]
+    Xp = torch.cat([X, X.new_zeros(X.shape[:-2] + (win - 1, X.shape[-1]))],
+                   dim=-2)
+    return torch.cat([Xp[..., i:i + N, :] for i in range(win)], dim=-1)
+
+
 def sliding_csm_padded(D: torch.Tensor, win: int) -> torch.Tensor:
     """Diagonal windowed RMS keeping the (..., M, N) shape:
     S[i, j] = sqrt(sum_k D[i+k, j+k]^2), k < win, with zeros past the

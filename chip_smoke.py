@@ -35,6 +35,17 @@ songs, 210 tiles, 12,720 pairs):
   bit for bit against the plain version); the first block-row recomputed
   by the plain versions; one tile's wall and device time split into the
   sort, qmax, dmax and the rest;
+- `benchmark()` of StrucFTM2D, StrucShingles, StrucScattering and
+  StrucLaplacian at their defaults (PAD_LEN 2000, a 512^2 scattering,
+  50 k-means restarts): the fused W of each chunk of 16 songs (one
+  kNN-mask launch, every output held bit for bit against the plain
+  version, as many launches as the npad buckets imply), the extraction
+  split into host prep, fused W and the chunk stage, peak memory, MAP
+  against the JAX package's records; the two shingle families' union
+  Gram forced onto the card against the float64 SpGEMM (rtol 1e-5);
+  StrucLaplacian's qmax and dmax a tile (210 each), its first block-row
+  recomputed by the plain versions, a tile's split, and one chunk's
+  eigenvector, k-means and SVD stages timed;
 
 then Serra09 at Da-TACOS song geometry through the sweep engines
 (`datacos_geometry`: 600 songs of a `LazySyntheticCorpus`, 40 cliques x
@@ -1399,6 +1410,30 @@ def _tile_split(algo, row: dict, col: dict, reps: int = 7) -> str:
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
 
 
+def _check_knn_calls(name: str, calls: list, outs: list, n: int) -> None:
+    """The path made `n` kNN-mask calls, and each output equals the plain
+    version's on the inputs the path gave it, bit for bit, signbit
+    included."""
+    from acoss_tpu_torch.ops import crp_cuda
+
+    if len(calls) != n:
+        raise AssertionError(f"{name}: {len(calls)} kNN-mask calls, "
+                             f"expected {n}")
+    shapes = {}
+    for ((W, k), kw), got in zip(calls, outs):
+        want = crp_cuda.knn_mask_matrix_ref(W, k, **kw)
+        if not (torch.equal(got, want)
+                and torch.equal(torch.signbit(got), torch.signbit(want))):
+            raise AssertionError(f"{name}: knn_mask kernel != plain on the "
+                                 f"path's {tuple(W.shape)} W: "
+                                 f"{int((got != want).sum())} cells differ")
+        key = (tuple(W.shape), tuple(sorted(set(k.tolist()))))
+        shapes[key] = shapes.get(key, 0) + 1
+    _phase(name, "knn_mask kernel == plain bit for bit on the path's W: "
+           + ", ".join(f"{c} x {shape} (k {ks})"
+                       for (shape, ks), c in shapes.items()))
+
+
 def _row_knn_path(name: str, algo, dev, fs, floors: dict,
                   extra_expect: dict | None = None, note: str = "") -> dict:
     """benchmark(algo) of a non-mutual row-kNN family that ends in qmax and
@@ -1416,17 +1451,7 @@ def _row_knn_path(name: str, algo, dev, fs, floors: dict,
     with _spy(crp_cuda, "knn_mask_matrix_batch", calls, outs):
         stats, Ds, times, counts = _benchmark_path(name, algo, dev, fs,
                                                    expect)
-    if len(calls) != expect.get("knn_mask", 0):
-        raise AssertionError(f"{name}: {len(calls)} kNN-mask calls")
-    for ((W, k), kw), got in zip(calls, outs):
-        want = crp_cuda.knn_mask_matrix_ref(W, k, **kw)
-        if not (torch.equal(got, want)
-                and torch.equal(torch.signbit(got), torch.signbit(want))):
-            raise AssertionError(f"{name}: knn_mask kernel != plain on the "
-                                 f"path's {tuple(W.shape)} W: "
-                                 f"{int((got != want).sum())} cells differ")
-        _phase(name, f"knn_mask kernel == plain bit for bit on the path's "
-               f"{tuple(W.shape)} W (k {k.tolist()})")
+    _check_knn_calls(name, calls, outs, expect.get("knn_mask", 0))
     _check_map(name, stats, floors)
     _stage_lines(name, algo.NAME, dev, fs, stats, times, counts,
                  f", {T} tiles{note}")
@@ -1452,6 +1477,248 @@ def phase_tgalg(dev, fs) -> dict:
     return _row_knn_path("tgalg", _keeping(TGAlg)(), dev, fs,
                          {"tempogram_sflux": 0.15, "": 0.0},
                          note=" (JAX record MAP 0.26-0.27)")
+
+
+# the JAX package's MAP records of the Struc* families on this corpus
+# (RESULTS.md, covers80-scale table; one channel each, StrucLaplacian's
+# for both): floors are these less 0.02, and less 0.05 for StrucLaplacian
+JAX_STRUC_MAP = {"StrucFTM2D": 0.928, "StrucShingles": 0.992,
+                 "StrucScattering": 1.000, "StructureLaplacian": 0.72}
+
+
+def _struc_chunks(fs, fuse_features: tuple) -> tuple[int, dict]:
+    """The fused-W chunks the corpus path makes (one kNN-mask launch
+    each): every song's segment count (the onsets' segments of its
+    shortest feature), its npad bucket, then chunks of BATCH_SIZE songs a
+    bucket. Returns (chunks, {npad: songs})."""
+    from acoss_tpu_torch.benchmarking.algorithms import struct_common as sc
+    from acoss_tpu_torch.ops.segment import fix_frames
+
+    feature = {"mfcc": "mfcc_htk", "hpcp": "hpcp", "tempogram": "snovfn"}
+    songs = {}
+    for i in range(fs.n_songs):
+        on = fs.feature("onsets")[i, :fs.length("onsets")[i], 0]
+        n = min(len(fix_frames(on, fs.length(feature[f])[i])) - 1
+                for f in fuse_features)
+        npad = max(-(-n // sc.BUCKET) * sc.BUCKET,
+                   2 * sc.autotune_k(10, max(n, 2)), sc.BUCKET)
+        songs[npad] = songs.get(npad, 0) + 1
+    return (sum(-(-c // sc.BATCH_SIZE) for c in songs.values()),
+            dict(sorted(songs.items())))
+
+
+@contextlib.contextmanager
+def _struc_stage_clock(module, seconds: dict):
+    """Time the fused-W calls and the per-chunk `consume` of the Struc*
+    corpus path (each ends at a device synchronize) while `module`'s
+    `structural_fused_w_all` runs; the rest of the extraction is host
+    prep (syncing the features, tempograms)."""
+    from acoss_tpu_torch.benchmarking.algorithms import struct_common as sc
+
+    real_all, real_fused = module.structural_fused_w_all, sc.fused_w_batch
+
+    def clocked(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def fused_all(*args, consume, **kwargs):
+        return real_all(*args, consume=clocked("consume", consume), **kwargs)
+
+    module.structural_fused_w_all = fused_all
+    sc.fused_w_batch = clocked("fused_w", real_fused)
+    try:
+        yield
+    finally:
+        module.structural_fused_w_all = real_all
+        sc.fused_w_batch = real_fused
+
+
+def _struc_path(name: str, algo, module, dev, fs, fuse: tuple,
+                extra_expect: dict | None = None):
+    """`benchmark(algo)` of a Struc* family at its defaults: every
+    fused-W chunk's kNN-mask launch held bit for bit against the plain
+    version, the launches checked against the chunks the npad buckets
+    imply, MAP against the JAX record's floor, the N x N matrices finite
+    with a zero diagonal, and the extraction split into host prep, fused
+    W and the chunk stage. Returns (stats, times, counts)."""
+    from acoss_tpu_torch.benchmarking.harness import benchmark
+    from acoss_tpu_torch.ops import crp_cuda
+
+    chunks, buckets = _struc_chunks(fs, fuse)
+    expect = {"knn_mask": chunks, **(extra_expect or {})}
+    calls, outs, stage, times = [], [], {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with _spy(crp_cuda, "knn_mask_matrix_batch", calls, outs), \
+            _struc_stage_clock(module, stage):
+        if algo.full_scores is None:
+            stats, _, times, counts = _benchmark_path(name, algo, dev, fs,
+                                                      expect)
+        else:
+            stats, counts = _counted(name, lambda: benchmark(
+                algo, fs, device=dev, times=times), expect)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_knn_calls(name, calls, outs, chunks)
+    n = fs.n_songs
+    for k, D in algo.Ds.items():
+        if D.shape != (n, n) or not np.isfinite(D).all() \
+                or np.diag(D).any():
+            raise AssertionError(f"{name} {k}: implausible score matrix")
+    floor = JAX_STRUC_MAP[algo.NAME] - (0.05 if algo.full_scores is None
+                                        else 0.02)
+    _check_map(name, stats, {"": floor})
+    # the kNN mask at the path's widest chunk, timed
+    (W, k), kw = max(calls, key=lambda c: c[0][0].shape[-1])
+    ms = _cuda_ms(lambda: crp_cuda.knn_mask_matrix_batch(W, k, **kw), 10)
+    plain_ms = _cuda_ms(lambda: crp_cuda.knn_mask_matrix_ref(W, k, **kw), 3)
+    del calls, outs, W
+    prep = times["extract"] - stage["fused_w"] - stage["consume"]
+    _stage_lines(name, algo.NAME, dev, fs, stats, times, counts,
+                 f", {chunks} fused-W chunks (npad: songs {buckets})")
+    _phase(name, f"extract split: host prep {prep:.2f} s, fused W (SNF) "
+           f"{stage['fused_w']:.2f} s, chunk stage {stage['consume']:.2f} s;"
+           f" peak device memory {peak:.2f} GiB; MAP floor {floor:.3f} "
+           f"(JAX record {JAX_STRUC_MAP[algo.NAME]}); knn_mask on the "
+           f"widest chunk: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return stats, times, counts
+
+
+def _check_sparse_gram(name: str, desc: dict, dev) -> None:
+    """The union Gram on the card (forced; at 160 songs the JAX package's
+    dispatch takes scipy) against the host SpGEMM, both timed. The
+    reference is the SpGEMM in float64: the fp32 SpGEMM itself is ~2e-5
+    off it on these shingles (scores ~0.96-0.99), and so is the JAX
+    package's own device path against the fp32 SpGEMM; the device Gram
+    must be within rtol 1e-5 of the float64 one."""
+    from acoss_tpu_torch.ops import sparse_gram
+
+    args = (desc["idx"], desc["val"], desc["dim"])
+    t0 = time.perf_counter()
+    host = sparse_gram.host_gram_scores(*args)
+    t_host = time.perf_counter() - t0
+    want = sparse_gram.host_gram_scores(
+        desc["idx"], [v.astype(np.float64) for v in desc["val"]],
+        desc["dim"])
+    sparse_gram.sparse_gram_scores(*args, force_device=True, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sparse_gram.sparse_gram_scores(*args, force_device=True,
+                                         device=dev)
+    t_dev = time.perf_counter() - t0
+
+    def rel(a):
+        return float(np.max(np.abs(a - want) / np.abs(want)))
+
+    if not np.allclose(got, want, rtol=1e-5, atol=0):
+        raise AssertionError(f"{name}: device sparse Gram off the float64 "
+                             f"SpGEMM by {rel(got)} (relative)")
+    usize = sparse_gram.compact_shingles(desc["idx"], desc["val"])[0]
+    nnz = [len(ix) for ix in desc["idx"]]
+    _phase(name, f"sparse Gram: device (forced) within rtol 1e-5 of the "
+           f"float64 SpGEMM (max relative error {rel(got):.3g}; the fp32 "
+           f"SpGEMM's {rel(host):.3g}); union {usize} of {desc['dim']} "
+           f"columns, nnz a song {min(nnz)}..{max(nnz)}, scores "
+           f"{float(got.min()):.4f}..{float(got.max()):.4f}; device "
+           f"{1e3 * t_dev:.1f} ms, host fp32 {1e3 * t_host:.1f} ms (wall)")
+
+
+def phase_struc_ftm2d(dev, fs) -> dict:
+    from acoss_tpu_torch.benchmarking.algorithms import (StrucFTM2D,
+                                                         StrucShingles,
+                                                         struc_ftm2d)
+
+    counts = {}
+    for name, cls in (("struc_ftm2d", StrucFTM2D),
+                      ("struc_shingles", StrucShingles)):
+        algo = _keeping(cls)()
+        _, _, counts[name] = _struc_path(name, algo, struc_ftm2d, dev, fs,
+                                         cls.FUSE_FEATURES)
+        _check_sparse_gram(name, algo.desc, dev)
+    return counts
+
+
+def phase_struc_scattering(dev, fs) -> dict:
+    from acoss_tpu_torch.benchmarking.algorithms import (StrucScattering,
+                                                         struc_scattering)
+    from acoss_tpu_torch.convert import descriptors_from_numpy
+
+    t0 = time.perf_counter()
+    algo = _keeping(StrucScattering)()
+    t_init = time.perf_counter() - t0
+    _, _, counts = _struc_path("struc_scattering", algo, struc_scattering,
+                               dev, fs, ("mfcc", "hpcp", "tempogram"))
+    desc = descriptors_from_numpy(algo.desc, dev)
+    ms = _cuda_ms(lambda: algo.full_scores(desc), 10)
+    _phase("struc_scattering", f"Scattering2D((512, 512), J=6, L=8) filter "
+           f"bank built on the host in {t_init:.2f} s; full_scores (one "
+           f"{tuple(desc['shingle'].shape)} Gram) {ms:.4f} ms")
+    return counts
+
+
+def phase_struc_laplacian(dev, fs) -> dict:
+    """StrucLaplacian: the fused-W kNN mask a chunk, then qmax and dmax a
+    tile (210 each), the first block-row recomputed by the plain
+    versions, a tile's split, and one chunk's profile stage split into
+    eigenvectors, k-means + meet and SVD (CUDA events)."""
+    from acoss_tpu_torch.benchmarking.algorithms import (StrucLaplacian,
+                                                         struc_laplacian)
+    from acoss_tpu_torch.convert import descriptors_from_numpy
+    from acoss_tpu_torch.ops import structure
+
+    name = "struc_laplacian"
+    algo = _keeping(StrucLaplacian)()
+    T = _swept_tiles(fs.n_songs, algo.TILE)
+    chunk_args = []
+
+    real = struc_laplacian.laplacian_profile_batch
+
+    def record(*args, **kwargs):
+        if not chunk_args:
+            chunk_args.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    struc_laplacian.laplacian_profile_batch = record
+    try:
+        _, _, counts = _struc_path(name, algo, struc_laplacian, dev, fs,
+                                   ("mfcc", "hpcp", "tempogram"),
+                                   {"qmax": T, "dmax": T})
+    finally:
+        struc_laplacian.laplacian_profile_batch = real
+    desc = descriptors_from_numpy(algo.desc, dev)
+    n = _first_block_row(algo, desc, algo.Ds, fs.n_songs)
+    _phase(name, f"first block-row ({n} tiles) recomputed by the plain "
+           f"versions on {dev}: identical scores; profiles "
+           f"{tuple(desc['profile'].shape)}, lengths "
+           f"{int(desc['length'].min())}..{int(desc['length'].max())}")
+    _phase(name, _tile_split(algo, *_tile(desc)))
+
+    # one chunk's profile stage, stage by stage
+    (W, beats, times, neigs, meet_pad), kw = chunk_args[0]
+    split, out = {}, {}
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    for key, fn in (
+            ("eigenvectors", lambda: structure.spectral_features(
+                W, beats, neigs)),
+            ("k-means + meet", lambda: structure.meet_matrices(
+                out["eigenvectors"], beats, times, neigs, meet_pad,
+                kw["songs"], kw["seed"])),
+            ("SVD", lambda: structure.svd_curve(out["k-means + meet"][0],
+                                                neigs))):
+        torch.cuda.synchronize()
+        start.record()
+        out[key] = fn()
+        end.record()
+        end.synchronize()
+        split[key] = start.elapsed_time(end)
+    _phase(name, f"one chunk's profile stage ({tuple(W.shape)} W, meet "
+           f"grid {meet_pad}): " + ", ".join(
+               f"{k} {v:.1f} ms" for k, v in split.items()))
+    return counts
 
 
 def main() -> int:
@@ -1488,6 +1755,16 @@ def main() -> int:
                         ("tgalg", phase_tgalg),
                         ("anf_scattering", phase_anf)):
         launches[name] = phase(dev, fs)
+    for phase in (phase_struc_ftm2d, phase_struc_scattering,
+                  phase_struc_laplacian):
+        t0 = time.perf_counter()
+        counts = phase(dev, fs)
+        if phase is phase_struc_ftm2d:
+            launches.update(counts)
+        else:
+            launches[phase.__name__[len("phase_"):]] = counts
+        _phase(phase.__name__[len("phase_"):],
+               f"phase {time.perf_counter() - t0:.1f} s")
     del fs
     launches["datacos_geometry"] = phase_datacos_geometry(dev)
     # each kernel's launches are read from the path it was ported for

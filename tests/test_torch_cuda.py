@@ -524,3 +524,163 @@ def test_simple_asymmetric_sweep_on_the_card_equals_cpu(dev):
     np.testing.assert_allclose(got["main"], want["main"], rtol=1e-5, atol=0)
     off = ~np.eye(fs.n_songs, dtype=bool)
     assert (got["main"][off] < 0).all()
+
+
+STRUC_SMALL = dict(wins_per_block=5, K=5, niters=5, tempogram_win=96)
+
+
+def test_struc_fused_w_on_the_card(dev):
+    """The Struc* corpus fusion on the card (one kNN-mask launch a chunk
+    of the (B F, npad, npad) stack) against the CPU run: fp32 tolerance,
+    or where a near-tie rank flips a neighbour the JAX package's own
+    bound (mean abs < 1e-4, max < 5% of max |W|)."""
+    from acoss_tpu_torch.benchmarking.algorithms import struct_common
+
+    fs = make_synthetic_dataset(n_cliques=3, clique_size=2, seed=1,
+                                base_duration=60.0)
+    before = crp_cuda.knn_mask_matrix_batch.launches
+    got = struct_common.structural_fused_w_all(fs, **STRUC_SMALL,
+                                               batch_size=4, device=dev)
+    launches = crp_cuda.knn_mask_matrix_batch.launches - before
+    want = struct_common.structural_fused_w_all(fs, **STRUC_SMALL,
+                                                batch_size=4, device="cpu")
+    assert launches == 2                     # 6 songs in chunks of 4
+    for (Wg, og, ng), (Ww, ow, nw) in zip(got, want):
+        assert ng == nw and np.array_equal(og, ow)
+        err = np.abs(Wg - Ww)
+        assert err.mean() < 1e-4 and err.max() < 0.05 * np.abs(Ww).max()
+
+
+@pytest.mark.parametrize("do_fft", [True, False])
+def test_shingle_topk_on_the_card(dev, do_fft):
+    """The canvas FFT and top-k on the card against the CPU: kept sets
+    differ only at cutoff ties within 1e-5, values within 1e-5."""
+    from acoss_tpu_torch.ops import structure
+
+    rng = np.random.default_rng(2)
+    lengths = np.array([400, 512, 333], np.int32)
+    W = np.zeros((3, 512, 512), np.float32)
+    for b, n in enumerate(lengths):
+        W[b, :n, :n] = rng.random((n, n), dtype=np.float32)
+    P, n_keep = 2000, 10000
+    gi, gv = (t.cpu().numpy() for t in structure.shingle_topk_batch(
+        torch.from_numpy(W).to(dev), lengths, P, n_keep, do_fft))
+    wi, wv = (t.numpy() for t in structure.shingle_topk_batch(
+        torch.from_numpy(W), lengths, P, n_keep, do_fft))
+    for b in range(3):
+        g = dict(zip(gi[b][gi[b] >= 0].tolist(), gv[b][gi[b] >= 0]))
+        w = dict(zip(wi[b][wi[b] >= 0].tolist(), wv[b][wi[b] >= 0]))
+        cutoff = np.sort(wv[b][wi[b] >= 0])[::-1][n_keep - 1]
+        for j in set(g) ^ set(w):
+            assert abs(g.get(j, w.get(j)) - cutoff) < 1e-5
+        assert max(abs(g[j] - w[j]) for j in set(g) & set(w)) < 1e-5
+
+
+def test_sparse_gram_on_the_card_keeps_tf32_off(dev):
+    """The union Gram on the card, with TF32 switched ON globally, within
+    rtol 1e-5 of the float64 SpGEMM, over several row blocks."""
+    from acoss_tpu_torch.ops import sparse_gram
+
+    rng = np.random.default_rng(0)
+    dim, idx, val = 200_000, [], []
+    shared = rng.choice(dim, 3000, replace=False)
+    for _ in range(70):
+        ix = np.unique(np.concatenate([rng.choice(shared, 2000, False),
+                                       rng.choice(dim, 500, False)]))
+        idx.append(ix.astype(np.int64))
+        val.append((rng.random(ix.size) * 0.02).astype(np.float32))
+    want = sparse_gram.host_gram_scores(
+        idx, [v.astype(np.float64) for v in val], dim)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = sparse_gram.sparse_gram_scores(idx, val, dim,
+                                             force_device=True,
+                                             max_row_block=32, device=dev)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+
+
+def test_struc_laplacian_tile_on_the_card(dev):
+    """StrucLaplacian's tile on the card: one qmax and one dmax launch on
+    the stacked CRPs, equal to the kernels' plain versions on the card;
+    on the CPU's CRPs the kernels give the CPU tile's scores bit for bit.
+    The CRPs themselves differ from the CPU's only in cells whose CSM value
+    sits within the two matmuls' rounding of its row's k-th value: the
+    profiles hold long runs of near-zero velocity, so their CSMs are full
+    of near-ties."""
+    from acoss_tpu_torch.benchmarking.algorithms import StrucLaplacian
+    from acoss_tpu_torch.ops import crp
+
+    fs = make_synthetic_dataset(n_cliques=3, clique_size=2, seed=1,
+                                base_duration=120.0)
+    algo = StrucLaplacian(**STRUC_SMALL, neigs=6, m=6)
+    desc = algo.extract_descriptors(fs, device="cpu")
+    cpu = descriptors_from_numpy(desc, "cpu")
+    card = descriptors_from_numpy(desc, dev)
+    q, d = alignment_cuda.qmax_batch_cuda, alignment_cuda.dmax_batch_cuda
+    before = (q.launches, d.launches)
+    got = algo.tile_scores(card, card)
+    torch.cuda.synchronize()
+    assert (q.launches, d.launches) == (before[0] + 1, before[1] + 1)
+    plain = algo.tile_scores(card, card, plain=True)
+    for k in algo.SIMILARITY_TYPES:
+        assert torch.equal(got[k], plain[k]), k
+        assert float(got[k].max()) > 0, k
+    # the aligners on the CPU's CRPs
+    B, l1, l2 = algo.tile_crps(cpu, cpu)
+    L = B.shape[-1]
+    S, ml, nl = B.reshape(-1, L, L), l1.reshape(-1), l2.reshape(-1)
+    denom = torch.clamp_min(ml + nl, 1).to(torch.float32)
+    for fn, k in ((alignment.qmax_batch_best, "snovfn_qmax"),
+                  (alignment.dmax_batch_best, "snovfn_dmax")):
+        on_card = fn(S.to(dev), ml.to(dev), nl.to(dev)).cpu() / denom
+        want = algo.tile_scores(cpu, cpu)[k].reshape(-1)
+        assert torch.equal(on_card, want), k
+    # where the CRPs differ, the CSM ties the row's k-th value to rounding
+    Bg, _, _ = algo.tile_crps(card, card)
+    csm = crp.get_csm(cpu["profile"][:, None], cpu["profile"][None])
+    csm_g = crp.get_csm(card["profile"][:, None],
+                        card["profile"][None]).cpu()
+    eps = float((csm - csm_g).abs().max())
+    valid = (torch.arange(L) < l2[..., None])[..., None, :]
+    kth = torch.sort(torch.where(valid, csm, float("inf")), dim=-1).values
+    kk = torch.round(l2.float() * algo.kappa).long().clamp_min(1)
+    thr = torch.gather(kth, -1, (kk - 1)[..., None, None].expand(
+        kth.shape[:-1] + (1,)))
+    diff = Bg.cpu() != B
+    if diff.any():
+        assert float((csm - thr).abs()[diff].max()) <= 2 * eps
+
+
+def test_laplacian_profile_on_the_card(dev):
+    """The profile stage on the card (eigh, k-means, SVD) on W whose
+    clusterings are deterministic: the velocity profiles equal the CPU's
+    to atol 1e-4."""
+    from acoss_tpu_torch.benchmarking.algorithms import StrucLaplacian
+    from acoss_tpu_torch.ops import structure
+
+    sizes = [(60, 40, 51), (27, 75, 33)]
+    W = np.zeros((2, 256, 256), np.float32)
+    times = np.full((2, 256), 1e18, np.float32)
+    aff = np.array([[1.0, 0.05, 1e-4], [0.05, 1.0, 1e-4],
+                    [1e-4, 1e-4, 1.0]], np.float32)
+    lengths = []
+    for b, s in enumerate(sizes):
+        lab = np.repeat(np.arange(3), s)
+        W[b, :lab.size, :lab.size] = aff[lab[:, None], lab[None, :]]
+        times[b, :lab.size] = 1.0 + 0.5 * np.arange(lab.size)
+        lengths.append(lab.size)
+    lengths = np.array(lengths, np.int32)
+    algo = StrucLaplacian(neigs=3, m=4)
+    outs = []
+    for device in (dev, "cpu"):
+        X, nmeet = structure.laplacian_profile_batch(
+            torch.from_numpy(W).to(device), lengths, times, 3, 384)
+        outs.append([algo._profile_from_curve(
+            X[b, :int(nmeet[b])].cpu().numpy().astype(np.float64))
+            for b in range(2)])
+    for g, w in zip(*outs):
+        assert g.shape == w.shape and w.max() > 0.01
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)

@@ -1,6 +1,7 @@
 """The port's numpy copies of the data and evaluation modules against the
 JAX package's originals: identical synthetic corpora, `.npz` files that
-load in either package, and identical retrieval statistics and CSV rows."""
+load in either package, and identical retrieval statistics and CSV rows;
+and its copies of `ops.curvature` and `sparse_gram.compact_shingles`."""
 
 import dataclasses
 
@@ -77,3 +78,44 @@ def test_eval_statistics_identical(seed, tmp_path):
                                      want)
     assert (tmp_path / "port.csv").read_text() == \
         (tmp_path / "jax.csv").read_text()
+
+
+@pytest.mark.parametrize("max_order,sigma,loop", [(3, 2, False), (2, 1.5, True),
+                                                  (1, 3, False)])
+def test_curvature_copy_identical(max_order, sigma, loop):
+    from acoss_tpu.ops import curvature as jax_curvature
+    from acoss_tpu_torch.ops import curvature
+
+    rng = np.random.default_rng(max_order)
+    X = np.cumsum(rng.normal(size=(60, 10)), axis=0)
+    X[20:25] = X[19]                     # a flat stretch: zero velocity
+    for g, w in zip(curvature.get_curv_vectors(X, max_order, sigma, loop),
+                    jax_curvature.get_curv_vectors(X, max_order, sigma, loop),
+                    strict=True):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(curvature.get_zero_crossings([X[:, :3], X[:, 3:]]),
+                    jax_curvature.get_zero_crossings([X[:, :3], X[:, 3:]])):
+        np.testing.assert_array_equal(g, w)
+    sig = np.array([1.0, 2.5])
+    for fn in ("get_scale_space_images", "get_multires_curvature_images"):
+        for g, w in zip(getattr(curvature, fn)(X, max_order, sig),
+                        getattr(jax_curvature, fn)(X, max_order, sig),
+                        strict=True):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_compact_shingles_copy_identical():
+    from acoss_tpu.ops.sparse_gram import compact_shingles as jax_compact
+    from acoss_tpu_torch.ops.sparse_gram import compact_shingles
+
+    idx = [np.array([3, 7], np.int64), np.array([7], np.int64),
+           np.array([], np.int64), np.array([1, 3, 9, 11], np.int64)]
+    val = [np.array([1.0, 2.0], np.float32), np.array([3.0], np.float32),
+           np.array([], np.float32),
+           np.array([0.5, -1.0, 2.0, 4.0], np.float32)]
+    got, want = compact_shingles(idx, val), jax_compact(idx, val)
+    assert got[0] == want[0] == 5
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[1][1], [2, 5, 5, 5])   # 5 = drop slot

@@ -42,6 +42,13 @@ def test_port_imports_no_jax():
               "acoss_tpu_torch.benchmarking.algorithms.chen_fusion",
               "acoss_tpu_torch.benchmarking.algorithms.tempogram",
               "acoss_tpu_torch.benchmarking.algorithms.anf_scattering",
+              "acoss_tpu_torch.benchmarking.algorithms.struct_common",
+              "acoss_tpu_torch.benchmarking.algorithms.struc_ftm2d",
+              "acoss_tpu_torch.benchmarking.algorithms.struc_scattering",
+              "acoss_tpu_torch.benchmarking.algorithms.struc_laplacian",
+              "acoss_tpu_torch.ops.curvature", "acoss_tpu_torch.ops.laplacian",
+              "acoss_tpu_torch.ops.sparse_gram",
+              "acoss_tpu_torch.ops.structure",
               "acoss_tpu_torch.features.rhythm",
               "acoss_tpu_torch.ops.similarity_legacy",
               "acoss_tpu_torch.native"):

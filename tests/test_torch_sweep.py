@@ -372,8 +372,9 @@ def test_tile_filter_and_full_scores(tmp_path):
         blocks[:, None] == blocks[None], -1))
 
     class Full(MaxProd):
-        def full_scores(self, desc):
+        def full_scores(self, desc, device):
             assert desc["vec"].dtype == torch.float32
+            assert torch.device(device) == desc["vec"].device
             return {"main": torch.ones(N, N)}
 
     store = _store(tmp_path, fs, quant="int8")
