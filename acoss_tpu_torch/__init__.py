@@ -5,6 +5,9 @@ against; this package imports neither it nor JAX, so it runs on a machine
 that has only PyTorch and the CUDA toolkit. Module names mirror the JAX
 package:
 
+- ``acoss_tpu_torch.features``      audio -> per-track features (spectral
+                                    stages on the device, the chord HMM's
+                                    forward-backward a kernel)
 - ``acoss_tpu_torch.data``          padded feature store + synthetic corpora
 - ``acoss_tpu_torch.ops``           CRP math, downsampling and the qmax/dmax
                                     aligners; ``*_cuda`` modules hold the

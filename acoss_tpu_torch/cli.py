@@ -1,5 +1,15 @@
 """Command-line entry point of the port.
 
+`python -m acoss_tpu_torch extract -i <audio dir | collection txt>
+ -o features.npz [-n THREADS] [-m cluster --num-shards N --shard-id I]
+ [--merge-shards] [--error-log errors.txt] [--device cuda]`
+extracts the default feature profile (hpcp, key, madmom substitute,
+mfcc_htk, crema) of every .wav/.mp3 under the directory (or listed in the
+txt) into one FeatureSet; a song's clique label is its parent directory.
+`-m cluster` extracts one contiguous shard into
+`<output>.part_<I>_<N>.npz`, and `--merge-shards` concatenates the parts
+into `<output>`, bit-identical to the serial extraction.
+
 `python -m acoss_tpu_torch benchmark -a ALGORITHM -d <features.npz>
  -s NAME [-c hpcp] [-t TILE] [--n_buckets N] [--cachedir DIR]
  [--no-checkpoint] [--snf-precision {highest,default}]
@@ -23,8 +33,10 @@ streamed from that store.
 from __future__ import annotations
 
 import argparse
+import glob
 import inspect
 import os
+import re
 import sys
 
 
@@ -151,6 +163,98 @@ def cmd_benchmark(args) -> int:
     return 0
 
 
+def _shard_stem(output: str) -> str:
+    """The naming stem of the shard parts of `output`, for the writer and
+    for the --merge-shards glob."""
+    return output[:-4] if output.endswith(".npz") else output
+
+
+def _shard_part_path(output: str, shard_id: int, num_shards: int) -> str:
+    return f"{_shard_stem(output)}.part_{shard_id}_{num_shards}.npz"
+
+
+def _merge_shards(output: str) -> int:
+    """Concatenate the shard FeatureSets of `output` in shard order."""
+    from acoss_tpu_torch.data.store import FeatureSet, concat_feature_sets
+
+    stem = _shard_stem(output)
+    tags = []
+    for p in sorted(glob.glob(glob.escape(stem) + ".part_*_*.npz")):
+        m = re.search(r"\.part_(\d+)_(\d+)\.npz$", p)
+        if m:
+            tags.append((int(m.group(1)), int(m.group(2)), p))
+    if not tags:
+        print(f"no shard files matching {stem}.part_*_*.npz",
+              file=sys.stderr)
+        return 1
+    nshards = {t[1] for t in tags}
+    if len(nshards) != 1:
+        print(f"shards from different shardings {sorted(nshards)}; clean "
+              f"out stale runs", file=sys.stderr)
+        return 1
+    n = nshards.pop()
+    missing = set(range(n)) - {t[0] for t in tags}
+    if missing:
+        print(f"missing shard(s) {sorted(missing)} of {n}; rerun them "
+              f"before merging", file=sys.stderr)
+        return 1
+    fs = concat_feature_sets([FeatureSet.load(p) for _, _, p in
+                              sorted(tags)])
+    fs.save(output)
+    print(f"merged {n} shards ({fs.n_songs} songs) -> {output}")
+    return 0
+
+
+def cmd_extract(args) -> int:
+    import numpy as np
+
+    from acoss_tpu_torch.data.manifest import (label_of, read_txt_list,
+                                               track_id_of)
+    from acoss_tpu_torch.features.pipeline import batch_extract
+
+    if args.merge_shards:
+        return _merge_shards(args.output)
+    if not args.input:
+        print("-i/--input is required unless --merge-shards",
+              file=sys.stderr)
+        return 1
+    if os.path.isdir(args.input):
+        paths = sorted(
+            glob.glob(os.path.join(args.input, "**", "*.wav"),
+                      recursive=True)
+            + glob.glob(os.path.join(args.input, "**", "*.mp3"),
+                        recursive=True))
+    else:
+        paths = read_txt_list(args.input)
+    if not paths:
+        print("no audio files found", file=sys.stderr)
+        return 1
+    output = args.output
+    if args.mode == "cluster":
+        # one array-job shard (the reference's `-m cluster`,
+        # `extractors.py:145-146`): a contiguous block of the collection
+        if not 0 <= args.shard_id < args.num_shards:
+            print(f"--shard-id must be in [0, {args.num_shards}), got "
+                  f"{args.shard_id}", file=sys.stderr)
+            return 1
+        idx = np.array_split(np.arange(len(paths)),
+                             args.num_shards)[args.shard_id]
+        paths = [paths[i] for i in idx]
+        output = _shard_part_path(args.output, args.shard_id,
+                                  args.num_shards)
+        if not paths:
+            print(f"shard {args.shard_id} is empty ({args.num_shards} "
+                  f"shards over fewer files)", file=sys.stderr)
+            return 1
+    fs = batch_extract(paths, [label_of(p) for p in paths],
+                       [track_id_of(p) for p in paths],
+                       error_log=args.error_log, n_workers=args.n_threads,
+                       device=args.device)
+    fs.save(output)
+    print(f"extracted {fs.n_songs}/{len(paths)} songs -> {output}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="acoss_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -206,7 +310,36 @@ def main(argv=None) -> int:
     b.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs "
                         "the plain PyTorch versions of the kernels)")
+    b.set_defaults(fn=cmd_benchmark)
+
+    e = sub.add_parser("extract", help="extract features from audio")
+    e.add_argument("-i", "--input", default=None,
+                   help="audio directory or collection txt (not needed "
+                        "with --merge-shards)")
+    e.add_argument("-o", "--output", default="features.npz")
+    e.add_argument("-m", "--mode", default="cpu",
+                   choices=["cpu", "cluster"],
+                   help="'cluster' extracts one shard of the collection "
+                        "(with --num-shards/--shard-id) for array jobs "
+                        "(the reference's -m cluster; the name does not "
+                        "pick the device, --device does)")
+    e.add_argument("-n", "--n_threads", type=int, default=1,
+                   help="host threads for per-song decode + feature "
+                        "computation (the reference's joblib -n)")
+    e.add_argument("--num-shards", type=int, default=1,
+                   help="total shards in cluster mode")
+    e.add_argument("--shard-id", type=int, default=0,
+                   help="this job's shard index (0-based)")
+    e.add_argument("--merge-shards", action="store_true",
+                   help="concatenate <output>.part_*_*.npz shard "
+                        "FeatureSets into <output>")
+    e.add_argument("--error-log", default="errors.txt")
+    e.add_argument("--device", default="cuda",
+                   help="torch device of the spectral stages (default "
+                        "cuda; cpu runs the plain PyTorch versions)")
+    e.set_defaults(fn=cmd_extract)
+
     args = parser.parse_args(argv)
-    if args.hybrid_panel and not args.stream_dir:
+    if args.cmd == "benchmark" and args.hybrid_panel and not args.stream_dir:
         parser.error("--hybrid-panel needs --stream-dir")
-    return cmd_benchmark(args)
+    return args.fn(args)

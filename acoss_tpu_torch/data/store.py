@@ -113,3 +113,45 @@ class FeatureSet:
                 feats[name] = np.stack(arrays)
         return cls(features=feats, lengths=lens,
                    labels=np.asarray(labels), track_ids=np.asarray(track_ids))
+
+
+def concat_feature_sets(sets: list["FeatureSet"]) -> "FeatureSet":
+    """Concatenate FeatureSets along the song axis (the merge step of
+    sharded extraction — the reference's `-m cluster` array jobs each
+    write their own h5 files, `extractors.py:81-146`; here each shard is
+    a FeatureSet and the merge re-pads ragged features to the global
+    max length).
+
+    Because padding is exactly zero, concatenating shard extractions in
+    shard order is bit-identical to one serial extraction over the full
+    list.
+    """
+    if not sets:
+        raise ValueError("no FeatureSets to concatenate")
+    names = set(sets[0].features)
+    for s in sets[1:]:
+        if set(s.features) != names:
+            raise ValueError(
+                f"feature mismatch between shards: {sorted(names)} vs "
+                f"{sorted(s.features)}")
+    feats, lens = {}, {}
+    for name in names:
+        arrays = [s.features[name] for s in sets]
+        ragged = any(name in s.lengths for s in sets)
+        if ragged:
+            L = max(a.shape[1] for a in arrays)
+            n_total = sum(a.shape[0] for a in arrays)
+            out = np.zeros((n_total, L) + arrays[0].shape[2:],
+                           dtype=arrays[0].dtype)
+            at = 0
+            for a in arrays:
+                out[at:at + a.shape[0], :a.shape[1]] = a
+                at += a.shape[0]
+            feats[name] = out
+            lens[name] = np.concatenate([s.length(name) for s in sets])
+        else:
+            feats[name] = np.concatenate(arrays, axis=0)
+    return FeatureSet(
+        features=feats, lengths=lens,
+        labels=np.concatenate([np.asarray(s.labels) for s in sets]),
+        track_ids=np.concatenate([np.asarray(s.track_ids) for s in sets]))

@@ -1,13 +1,21 @@
-"""Local autocorrelation tempogram (port of `acoss_tpu.features.rhythm`'s
-`tempogram_aggregated_batch`, the stand-in of `librosa.feature.tempogram`):
-hop-1 Hann-windowed frames of an onset envelope, each frame's
-autocorrelation by FFT, normalized by its largest magnitude, then
-mean-aggregated between boundary frames.
+"""Local autocorrelation tempogram (port of `acoss_tpu.features.rhythm`,
+the stand-in of `librosa.feature.tempogram`): hop-1 Hann-windowed frames
+of an onset envelope, each frame's autocorrelation by FFT, normalized by
+its largest magnitude (`tempogram`), optionally mean-aggregated between
+boundary frames (`tempogram_aggregated_batch`).
 
 Songs are batched by length on the device: one `torch.fft.rfft` / `irfft`
-over a batch's (B, frames, win) windows and one `index_add_` segment sum.
-A batch is padded to its longest song; padded frames only add to a junk
-segment that is dropped, so no song's output depends on the padding.
+over a batch's (B, frames, win) windows and one segment sum. A batch is
+padded to its longest song; padded frames only add to a junk segment that
+is dropped, so no song's output depends on the padding. The JAX package
+also pads every envelope to a multiple of 4,096 frames to bound its
+compiles; the port has no compiles and computes the song's frames only.
+
+The segment sum is order-fixed on the card: `index_add_` on a CUDA tensor
+adds by atomics in no fixed order, so two runs could differ in the last
+bits and StrucLaplacian's clusterings with them. On CUDA it is a one-hot
+segment matmul with TF32 off, a chunk of frames at a time; on the CPU it
+stays `index_add_`, which adds in frame order.
 """
 
 from __future__ import annotations
@@ -15,7 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from acoss_tpu_torch.ops.crp import cuda_tf32
 from acoss_tpu_torch.ops.segment import fix_frames
+
+#: one-hot elements of a segment-matmul chunk on the card (256 MiB fp32)
+SEGSUM_CHUNK_ELEMS = 2 ** 26
 
 
 def _ramp_pad_envelope(oenv: np.ndarray, win_length: int) -> np.ndarray:
@@ -41,12 +53,10 @@ def _segment_prep(oenv: np.ndarray, boundaries, win_length: int):
             np.diff(b).astype(np.float64))
 
 
-def _tempogram_segsum(padded: torch.Tensor, seg_ids: torch.Tensor,
-                      win_length: int, n_seg: int) -> torch.Tensor:
-    """Segment sums of the tempogram frames of a batch: padded (B, F +
-    win_length - 1 or more) envelopes, seg_ids (B, F) in [0, n_seg) ->
-    (B, n_seg, win_length) float32."""
-    B, F = seg_ids.shape
+def _tempogram_frames(padded: torch.Tensor, F: int,
+                      win_length: int) -> torch.Tensor:
+    """The normalized autocorrelations of the first F hop-1 frames of
+    ramped envelopes padded (B, >= F + win_length - 1): (B, F, win)."""
     frames = padded.unfold(1, win_length, 1)[:, :F]       # (B, F, win)
     window = torch.from_numpy(np.hanning(win_length).astype(np.float32)) \
         .to(padded.device)
@@ -55,13 +65,50 @@ def _tempogram_segsum(padded: torch.Tensor, seg_ids: torch.Tensor,
     ac = torch.fft.irfft(spec * torch.conj(spec), n=n_fft,
                          dim=-1)[..., :win_length]
     peak = torch.amax(torch.abs(ac), dim=-1, keepdim=True)
-    ac = ac / torch.where(peak == 0, 1.0, peak)
-    sums = torch.zeros((B * n_seg, win_length), dtype=ac.dtype,
-                       device=ac.device)
-    offs = torch.arange(B, device=ac.device)[:, None] * n_seg
-    sums.index_add_(0, (seg_ids + offs).reshape(-1),
-                    ac.reshape(-1, win_length))
-    return sums.reshape(B, n_seg, win_length)
+    return ac / torch.where(peak == 0, 1.0, peak)
+
+
+def segment_sum(x: torch.Tensor, seg_ids: torch.Tensor,
+                n_seg: int) -> torch.Tensor:
+    """Sums of the rows of x (B, F, d) by segment id (B, F) in [0, n_seg):
+    (B, n_seg, d), in a fixed order on either device (module
+    docstring)."""
+    B, F, d = x.shape
+    if x.device.type == "cpu":
+        sums = torch.zeros((B * n_seg, d), dtype=x.dtype)
+        offs = torch.arange(B)[:, None] * n_seg
+        sums.index_add_(0, (seg_ids + offs).reshape(-1), x.reshape(-1, d))
+        return sums.reshape(B, n_seg, d)
+    sums = torch.zeros((B, n_seg, d), dtype=x.dtype, device=x.device)
+    segs = torch.arange(n_seg, device=x.device)[None, :, None]
+    chunk = max(SEGSUM_CHUNK_ELEMS // (B * n_seg), 1)
+    with cuda_tf32(False):
+        for f0 in range(0, F, chunk):
+            onehot = (seg_ids[:, None, f0:f0 + chunk] == segs).to(x.dtype)
+            sums += torch.bmm(onehot, x[:, f0:f0 + chunk])
+    return sums
+
+
+def _tempogram_segsum(padded: torch.Tensor, seg_ids: torch.Tensor,
+                      win_length: int, n_seg: int) -> torch.Tensor:
+    """Segment sums of the tempogram frames of a batch: padded (B, F +
+    win_length - 1 or more) envelopes, seg_ids (B, F) in [0, n_seg) ->
+    (B, n_seg, win_length) float32."""
+    ac = _tempogram_frames(padded, seg_ids.shape[1], win_length)
+    return segment_sum(ac, seg_ids, n_seg)
+
+
+def tempogram(onset_envelope: np.ndarray, win_length: int = 384,
+              sr: int = 44100, hop_length: int = 512,
+              device: str | torch.device = "cuda") -> np.ndarray:
+    """Local autocorrelation tempogram of one (L,) onset envelope,
+    (win_length, L) float32, computed on `device`. sr and hop_length are
+    accepted for signature parity with librosa: the autocorrelation only
+    depends on the envelope and win_length."""
+    oenv = np.ascontiguousarray(onset_envelope, dtype=np.float32).ravel()
+    ramped = torch.from_numpy(_ramp_pad_envelope(oenv, win_length))
+    ac = _tempogram_frames(ramped.to(device)[None], oenv.size, win_length)
+    return ac[0].T.cpu().numpy()
 
 
 def tempogram_aggregated_batch(envelopes: list, boundaries_list: list,

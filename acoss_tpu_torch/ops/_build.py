@@ -126,6 +126,8 @@ SIGNATURES = {
     # SSMA, SSMB, CSM, l1, l2, K, B, L, Mu, stats, W, device, stream
     "acoss_wcsmssm": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
                       _I),
+    # E, A, T, C, gamma, device, stream
+    "acoss_hmm_fb": ([_P, _P, _I, _I, _P, _I, _P], _I),
     "acoss_error_string": ([_I], ctypes.c_char_p),
 }
 

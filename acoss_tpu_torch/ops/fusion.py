@@ -77,9 +77,16 @@ def _mean_k_smallest(D: torch.Tensor, k,
     srt = _smallest_sorted(D, k_static_max)
     kk = torch.clamp(_per_matrix(k, D.shape[:-2], D.device), 1,
                      srt.shape[-1])
-    csum = torch.cumsum(srt, dim=-1)
-    idx = (kk - 1)[..., None, None].expand(D.shape[:-1] + (1,))
-    tot = torch.gather(csum, -1, idx)[..., 0]
+    if D.device.type == "cpu":
+        csum = torch.cumsum(srt, dim=-1)
+        idx = (kk - 1)[..., None, None].expand(D.shape[:-1] + (1,))
+        tot = torch.gather(csum, -1, idx)[..., 0]
+    else:
+        # a masked sum: torch.cumsum of floats on a CUDA tensor is not
+        # order-fixed, so two runs could differ
+        first = torch.arange(srt.shape[-1], device=D.device) \
+            < kk[..., None, None]
+        tot = torch.sum(torch.where(first, srt, 0.0), dim=-1)
     return tot / kk.to(D.dtype)[..., None]
 
 

@@ -83,9 +83,15 @@ def stacked_cosine(x: torch.Tensor, win: int) -> torch.Tensor:
     sq, G = _gram(x)
     num = _window_diag_sum(G, win, n)
     # stacked squared norm of row i = sum_k |x[i + k]|^2, a 1-D window sum
-    csq = torch.cumsum(torch.cat([sq.new_zeros(sq.shape[:-1] + (1,)), sq],
-                                 dim=-1), dim=-1)
-    nrm = torch.sqrt(torch.clamp_min(csq[..., win:] - csq[..., :-win], 0.0))
+    # (on the card a direct sum a window: torch.cumsum of floats on a CUDA
+    # tensor is not order-fixed, so two runs could differ)
+    if sq.device.type == "cpu":
+        csq = torch.cumsum(torch.cat([sq.new_zeros(sq.shape[:-1] + (1,)),
+                                      sq], dim=-1), dim=-1)
+        wsq = csq[..., win:] - csq[..., :-win]
+    else:
+        wsq = sq.unfold(-1, win, 1).sum(dim=-1)
+    nrm = torch.sqrt(torch.clamp_min(wsq, 0.0))
     nrm = torch.where(nrm == 0, 1.0, nrm)
     return 1.0 - num / (nrm[..., :, None] * nrm[..., None, :])
 
@@ -248,8 +254,9 @@ def _median_filter_time(x: torch.Tensor, length: torch.Tensor,
                         size: int) -> torch.Tensor:
     """Median filter of x (B, n, d) along axis 1 with scipy's 'reflect'
     (numpy's 'symmetric') boundary at each song's length. `size` is odd,
-    so the median is the middle value (`torch.median`'s lower median is
-    the same)."""
+    so the median is the middle value of the sorted window (the values
+    of `torch.median`, whose CUDA version has no order-fixed
+    implementation for its indices)."""
     n = x.shape[1]
     r = size // 2
     dev = x.device
@@ -259,7 +266,7 @@ def _median_filter_time(x: torch.Tensor, length: torch.Tensor,
     period = torch.clamp_min(2 * ln, 1)
     p = torch.remainder(pos[None], period)
     idx = torch.clamp(torch.where(p < ln, p, period - 1 - p), 0, n - 1)
-    return torch.median(_gather_rows(x, idx), dim=2).values
+    return torch.sort(_gather_rows(x, idx), dim=2).values[:, :, r]
 
 
 def rw_laplacian_eigs_padded(W: torch.Tensor,
@@ -302,10 +309,16 @@ def _draw(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     CDF at the uniform u (...,): the first index whose cumulative weight
     exceeds u times the row total, so a zero weight is never drawn. A row
     of zero total draws by u alone (uniformly over the row)."""
-    c = torch.cumsum(p.to(torch.float64), dim=-1)
+    p = p.to(torch.float64)
+    n = p.shape[-1]
+    if p.device.type == "cpu":
+        c = torch.cumsum(p, dim=-1)
+    else:
+        # an upper-triangular matmul: order-fixed, where torch.cumsum of
+        # floats on a CUDA tensor is not
+        c = p @ torch.ones((n, n), dtype=p.dtype, device=p.device).triu()
     tot = c[..., -1:]
     empty = tot == 0
-    n = p.shape[-1]
     c = torch.where(empty, torch.arange(1, n + 1, device=p.device,
                                         dtype=torch.float64), c)
     tot = torch.where(empty, float(n), tot)

@@ -44,8 +44,9 @@ songs, 210 tiles, 12,720 pairs):
   against the JAX package's records; the two shingle families' union
   Gram forced onto the card against the float64 SpGEMM (rtol 1e-5);
   StrucLaplacian's qmax and dmax a tile (210 each), its first block-row
-  recomputed by the plain versions, a tile's split, and one chunk's
-  eigenvector, k-means and SVD stages timed;
+  recomputed by the plain versions, a tile's split, one chunk's
+  eigenvector, k-means and SVD stages timed, and a second `benchmark()`
+  whose score matrices and MAP must equal the first's;
 
 then Serra09 at Da-TACOS song geometry through the sweep engines
 (`datacos_geometry`: 600 songs of a `LazySyntheticCorpus`, 40 cliques x
@@ -54,7 +55,14 @@ sweep of the dequantized store, the bucketed sweep streamed from
 per-bucket int8 stores into memmapped scores, killed half way and resumed
 from its ledger, and the hybrid 128-song-panel sweep; all bit-equal to
 their plain references, with the device's idle share on the bucketed
-sweep).
+sweep); and last the extraction layer from audio (`extract`: 16
+placeholder WAVs from `scripts/torch_covers80_placeholder.py` through
+`batch_extract` with the default profile, all 16 extracted with one
+launch a song of the chord HMM's forward-backward kernel, `hmm_fb`, held
+to its plain version on the path's emissions; seconds a stage a song,
+one 300 s song, peak memory; then `benchmark(Serra09)` on the extracted
+features, its chroma MAP against the JAX package's CPU record on the
+same WAVs less 0.02).
 
 Every path runs with the launch counts set to 0 and checks them against
 the counts its design implies, checks retrieval (MAP), and the
@@ -76,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -145,7 +154,7 @@ def _run(cmd: list[str]) -> str:
 
 def _wrappers() -> dict:
     """Every kernel wrapper by its name in the kernels line."""
-    from acoss_tpu_torch.ops import alignment_cuda, crp_cuda
+    from acoss_tpu_torch.ops import alignment_cuda, crp_cuda, hmm_cuda
 
     return {"qmax": alignment_cuda.qmax_batch_cuda,
             "dmax": alignment_cuda.dmax_batch_cuda,
@@ -154,7 +163,8 @@ def _wrappers() -> dict:
             "fused_crp": crp_cuda.fused_binary_crp_batch,
             "binarize": crp_cuda.binarize_matrix_batch,
             "knn_mask": crp_cuda.knn_mask_matrix_batch,
-            "wcsmssm": crp_cuda.wcsmssm_batch}
+            "wcsmssm": crp_cuda.wcsmssm_batch,
+            "hmm_fb": hmm_cuda.chord_forward_backward}
 
 
 def _counted(path: str, run, expect: dict):
@@ -1684,11 +1694,28 @@ def phase_struc_laplacian(dev, fs) -> dict:
 
     struc_laplacian.laplacian_profile_batch = record
     try:
-        _, _, counts = _struc_path(name, algo, struc_laplacian, dev, fs,
-                                   ("mfcc", "hpcp", "tempogram"),
-                                   {"qmax": T, "dmax": T})
+        stats, _, counts = _struc_path(name, algo, struc_laplacian, dev, fs,
+                                       ("mfcc", "hpcp", "tempogram"),
+                                       {"qmax": T, "dmax": T})
     finally:
         struc_laplacian.laplacian_profile_batch = real
+    # the same benchmark again in this process: the score matrices and
+    # MAP must repeat bit for bit (the extraction is order-fixed)
+    from acoss_tpu_torch.benchmarking.harness import benchmark
+
+    again = _keeping(StrucLaplacian)()
+    stats2 = benchmark(again, fs, device=dev)
+    for k in algo.SIMILARITY_TYPES:
+        if not np.array_equal(algo.Ds[k], again.Ds[k]) \
+                or stats[k].map != stats2[k].map:
+            raise AssertionError(
+                f"{name} {k}: a second run differs (MAP {stats[k].map} / "
+                f"{stats2[k].map}, {int((algo.Ds[k] != again.Ds[k]).sum())}"
+                f" scores)")
+    _phase(name, "a second benchmark() in this call: equal score matrices; "
+           + ", ".join(f"{k} MAP {stats[k].map:.4f} / {stats2[k].map:.4f}"
+                       for k in algo.SIMILARITY_TYPES))
+    del again
     desc = descriptors_from_numpy(algo.desc, dev)
     n = _first_block_row(algo, desc, algo.Ds, fs.n_songs)
     _phase(name, f"first block-row ({n} tiles) recomputed by the plain "
@@ -1719,6 +1746,182 @@ def phase_struc_laplacian(dev, fs) -> dict:
            f"grid {meet_pad}): " + ", ".join(
                f"{k} {v:.1f} ms" for k, v in split.items()))
     return counts
+
+
+# the JAX package's Serra09 MAP on the smoke's 16 placeholder WAVs (8
+# cliques, seed 0), extracted and scored on the CPU by
+#   JAX_PLATFORMS=cpu python scripts/covers80_parity.py --make-placeholder \
+#     --placeholder-cliques 8 --cpu --only Serra09 --audio-dir covers32k \
+#     --features feats.npz --csv results.csv
+# (which writes the same bytes as `torch_covers80_placeholder.py`); the
+# extract phase's floor is its chroma MAP less 0.02
+JAX_PLACEHOLDER_MAP = {"chroma_qmax": 1.0, "chroma_dmax": 1.0,
+                       "mfcc_qmax": 0.8839, "mfcc_dmax": 0.8839}
+EXTRACT_STAGES = ("load", "hpcp", "crema", "cqt", "chord", "mfcc_htk",
+                  "madmom", "beat_dp")
+
+
+def _placeholder_script():
+    """scripts/torch_covers80_placeholder.py of this checkout, as a
+    module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / \
+        "torch_covers80_placeholder.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def _extract_stage_clock(seconds: dict):
+    """Time the extraction's stages (each ends at a device synchronize)
+    while the block runs: audio load, hpcp, crema (its cqt and the chord
+    HMM inside), mfcc_htk, madmom (its beat DP inside; the rest are the
+    two onset envelopes)."""
+    from acoss_tpu_torch.features import chord, onsets, pipeline
+
+    patches = [(pipeline, "load_audio", "load"), (pipeline, "hpcp", "hpcp"),
+               (pipeline, "crema_substitute", "crema"),
+               (chord, "cqt_tensor", "cqt"),
+               (chord, "_posteriors", "chord"),
+               (pipeline, "mfcc_htk", "mfcc_htk"),
+               (pipeline, "madmom_features_substitute", "madmom"),
+               (onsets, "beat_track_dp", "beat_dp")]
+
+    def clocked(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    reals = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for (m, n, key), (_, _, real) in zip(patches, reals):
+        setattr(m, n, clocked(key, real))
+    try:
+        yield
+    finally:
+        for m, n, real in reals:
+            setattr(m, n, real)
+
+
+def _stage_text(seconds: dict, per: float) -> str:
+    return ", ".join(f"{k} {seconds.get(k, 0.0) / per:.3f}"
+                     for k in EXTRACT_STAGES)
+
+
+def phase_extract(dev) -> tuple[dict, dict]:
+    """The extraction layer from audio: a 16-song placeholder WAV corpus
+    (8 cliques, the port's copy of the placeholder recipe) through
+    `batch_extract(device="cuda")` with the default profile (all 16 songs,
+    an empty error log, one hmm_fb launch a song), seconds a stage a song
+    and the peak device memory; hmm_fb against its plain version on the
+    path's own emissions (atol 1e-5); one 300 s song (the takes
+    concatenated) stage by stage; then `benchmark(Serra09)` on the
+    extracted FeatureSet (fused CRP, qmax, dmax) against the JAX package's
+    record on the same WAVs. Returns (hmm_fb's kernels entry, the
+    extraction's launch counts)."""
+    from acoss_tpu_torch.benchmarking.algorithms import Serra09
+    from acoss_tpu_torch.features import chord, pipeline
+    from acoss_tpu_torch.features.audio import load_audio
+    from acoss_tpu_torch.ops import hmm_cuda
+
+    name = "extract"
+    script = _placeholder_script()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        script.make_placeholder(f"{tmp}/covers32k", seed=0, n_cliques=8)
+        t_synth = time.perf_counter() - t0
+        paths, labels = script.placeholder_paths(f"{tmp}/covers32k")
+        errors = f"{tmp}/errors.txt"
+        seconds, calls = {}, []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _extract_stage_clock(seconds), \
+                _spy(chord, "chord_forward_backward", calls):
+            fs, counts = _counted(name, lambda: pipeline.batch_extract(
+                paths, labels, error_log=errors, device=dev),
+                {"hmm_fb": len(paths)})
+        t_all = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if fs.n_songs != len(paths) or os.path.exists(errors):
+            raise AssertionError(f"{name}: {fs.n_songs} of {len(paths)} "
+                                 f"songs extracted")
+        audio = np.concatenate([load_audio(p) for p in paths])
+    frames = fs.length("hpcp")
+    _phase(name, f"{len(paths)} placeholder WAVs synthesized in "
+           f"{t_synth:.1f} s; batch_extract on {dev}: {fs.n_songs} of "
+           f"{len(paths)} songs, hpcp frames {int(frames.min())}.."
+           f"{int(frames.max())}, {t_all:.2f} s ({t_all / len(paths):.3f} "
+           f"s a song); launches hmm_fb {counts['hmm_fb']}; peak device "
+           f"memory {peak:.2f} GiB")
+    _phase(name, "seconds a song: " + _stage_text(seconds, len(paths)))
+
+    # hmm_fb against its plain version on the first song's emissions
+    (le, lt), _ = calls[0]
+    T, C = le.shape
+    got = hmm_cuda.chord_forward_backward(le, lt)
+    want = hmm_cuda.chord_forward_backward_ref(le, lt)
+    err = float((got - want).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"{name}: hmm_fb off its plain version by "
+                             f"{err}")
+    ms = _cuda_ms(lambda: hmm_cuda.chord_forward_backward(le, lt), 20)
+    plain_ms = _cuda_ms(lambda: hmm_cuda.chord_forward_backward_ref(le, lt),
+                        1)
+    # reads E and A once, writes gamma once; a step of either pass does
+    # C^2 adds, maxes, subtractions, exps and sums (the rest is O(C))
+    bound = _bound(4 * (2 * T * C + C * C), 2 * 5 * T * C * C)
+    kernel = _kernel("hmm_fb", "hmm.cu", "none: acoss_tpu/features/"
+                     "chord.py:72 (two lax.scans, no Pallas kernel)", err,
+                     ms, plain_ms, bound)
+    _phase(name, f"hmm_fb on ({T}, {C}) emissions: max abs err {err:.3g} "
+           f"(atol 1e-5), kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+           f"bound {bound[0]:.5f} ms ({bound[1]})")
+
+    # one 300 s song: the takes concatenated
+    song = audio[:300 * 44100]
+    seconds = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _extract_stage_clock(seconds):
+        feats = pipeline.compute_features(song, device=dev)
+    t_song = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(feats[k]).all()
+               for k in ("hpcp", "crema", "mfcc_htk")):
+        raise AssertionError(f"{name}: non-finite features of the 300 s "
+                             f"song")
+    _phase(name, f"one {song.size / 44100:.0f} s song "
+           f"({feats['hpcp'].shape[0]} hpcp frames): {t_song:.2f} s, "
+           f"peak device memory {peak:.2f} GiB; seconds: "
+           + _stage_text(seconds, 1))
+
+    # Serra09 on the extracted features
+    algo = Serra09()
+    T = _swept_tiles(fs.n_songs, algo.TILE)
+    stats, _, times, serra = _benchmark_path(
+        "extract_serra09", algo, dev, fs,
+        {"qmax": T, "dmax": T, "fused_crp": 2 * T})
+    floors = {k: JAX_PLACEHOLDER_MAP[k] - 0.02 for k in JAX_PLACEHOLDER_MAP
+              if k.startswith("chroma")}
+    for k, floor in floors.items():
+        if not stats[k].map >= floor:
+            raise AssertionError(f"{name} Serra09 {k}: MAP {stats[k].map} "
+                                 f"< {floor:.4f}")
+    _phase(name, f"benchmark(Serra09) on the extracted features: launches "
+           + ", ".join(f"{k} {v}" for k, v in serra.items()) + "; "
+           + ", ".join(f"{k} MAP {s.map:.4f} (JAX CPU record "
+                       f"{JAX_PLACEHOLDER_MAP[k]})" for k, s in stats.items())
+           + f"; extract {times['extract']:.2f} s, sweep "
+           f"{times['sweep']:.2f} s")
+    return kernel, counts
 
 
 def main() -> int:
@@ -1767,12 +1970,16 @@ def main() -> int:
                f"phase {time.perf_counter() - t0:.1f} s")
     del fs
     launches["datacos_geometry"] = phase_datacos_geometry(dev)
+    t0 = time.perf_counter()
+    kernels["hmm_fb"], launches["extract"] = phase_extract(dev)
+    _phase("extract", f"phase {time.perf_counter() - t0:.1f} s")
     # each kernel's launches are read from the path it was ported for
     for path, names in (("main_path", ("qmax", "dmax", "fused_crp")),
                         ("legacy", ("qmax_uneq",)),
                         ("early_snf", ("binarize", "knn_mask")),
                         ("early_snf_fast", ("wcsmssm",)),
-                        ("early_fusion", ("sw",))):
+                        ("early_fusion", ("sw",)),
+                        ("extract", ("hmm_fb",))):
         for name in names:
             kernels[name]["launches"] = launches[path][name]
             kernels[name]["path"] = path

@@ -684,3 +684,172 @@ def test_laplacian_profile_on_the_card(dev):
     for g, w in zip(*outs):
         assert g.shape == w.shape and w.max() > 0.01
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+
+
+# ------------------------------------------- feature extraction (L1) --
+
+def _hmm_inputs(T: int, C: int = 25, seed: int = 0, flat: bool = False):
+    from acoss_tpu_torch.features import chord
+
+    rng = np.random.default_rng(seed)
+    logits = np.zeros((T, C)) if flat else rng.normal(0, 4, (T, C))
+    le = torch.log_softmax(torch.from_numpy(logits.astype(np.float32)), 1)
+    lt = chord.log_transitions(C, 0.97) if C == 25 else np.log(
+        rng.dirichlet(np.ones(C), C)).astype(np.float32)
+    return le.contiguous(), torch.from_numpy(lt)
+
+
+@pytest.mark.parametrize("T,C,flat", [(1, 25, False), (2, 25, False),
+                                      (37, 25, False), (6000, 25, False),
+                                      (500, 25, True), (300, 7, False),
+                                      (300, 32, False), (26000, 25, False)])
+def test_hmm_fb_kernel_matches_plain(dev, T, C, flat):
+    """The forward-backward kernel against its plain version on the card
+    (random emissions; T = 1; all-equal emissions; 7 and 32 states; a
+    5-minute song's 26,000 frames): posteriors within atol 1e-5 (the
+    log-sum-exps add in other orders; the messages are shifted to a
+    largest entry of 0, so no error grows with T), one launch a call."""
+    from acoss_tpu_torch.ops import hmm_cuda
+
+    le, lt = _hmm_inputs(T, C, seed=T + C, flat=flat)
+    le, lt = le.to(dev), lt.to(dev)
+    fn = hmm_cuda.chord_forward_backward
+    before = fn.launches
+    got = fn(le, lt)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = hmm_cuda.chord_forward_backward_ref(le, lt)
+    assert got.shape == (T, C) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-5
+    torch.testing.assert_close(got.sum(1), torch.ones(T, device=dev),
+                               rtol=0, atol=1e-5)
+    if flat:   # uniform emissions under a symmetric prior: uniform
+        torch.testing.assert_close(got, torch.full_like(got, 1 / C),
+                                   rtol=0, atol=1e-6)
+
+
+def test_hmm_fb_kernel_rejects_what_it_does_not_take(dev):
+    from acoss_tpu_torch.ops import hmm_cuda
+
+    le, lt = _hmm_inputs(10, 25)
+    with pytest.raises(ValueError):       # more states than lanes
+        hmm_cuda.chord_forward_backward(torch.zeros(4, 33, device=dev),
+                                        torch.zeros(33, 33, device=dev))
+    with pytest.raises(ValueError):       # mixed devices
+        hmm_cuda.chord_forward_backward(le.to(dev), lt)
+    with pytest.raises(ValueError):       # not contiguous
+        hmm_cuda.chord_forward_backward(le.to(dev).T.contiguous().T,
+                                        lt.to(dev))
+
+
+def _struc_corpus():
+    return make_synthetic_dataset(n_cliques=3, clique_size=2, seed=1,
+                                  base_duration=120.0)
+
+
+def _assert_same_descriptors(a: dict, b: dict):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                      err_msg=k)
+
+
+def test_struc_laplacian_descriptors_repeat_bit_for_bit(dev):
+    """Two extractions of StrucLaplacian's descriptors on the card are
+    bit-identical: the tempogram segment sum, the stacked cosine norms,
+    the SNF radii and the k-means draws' CDF are order-fixed there
+    (index_add_ and torch.cumsum of floats on a CUDA tensor are not)."""
+    from acoss_tpu_torch.benchmarking.algorithms import StrucLaplacian
+
+    fs = _struc_corpus()
+    algo = StrucLaplacian(**STRUC_SMALL, neigs=6, m=6)
+    first = algo.extract_descriptors(fs, device=dev)
+    second = algo.extract_descriptors(fs, device=dev)
+    _assert_same_descriptors(first, second)
+    assert float(np.abs(first["profile"]).max()) > 0
+
+
+def test_tgalg_tempograms_repeat_bit_for_bit(dev):
+    fs = make_synthetic_dataset(n_cliques=3, clique_size=2, seed=1,
+                                base_duration=300.0, beat_period=30.0)
+    algo = TGAlg()
+    _assert_same_descriptors(algo.extract_descriptors(fs, device=dev),
+                             algo.extract_descriptors(fs, device=dev))
+
+
+def test_struc_laplacian_extraction_raises_no_determinism_alert(dev):
+    """A diagnostic: StrucLaplacian's extraction once under
+    torch.use_deterministic_algorithms(True, warn_only=True) alerts on no
+    op. The mode only alerts on ops with no deterministic version (such
+    as torch.cumsum of floats on CUDA); index_add_ and friends switch to
+    one silently, which the repeat test above covers. cuBLAS's alert asks
+    for CUBLAS_WORKSPACE_CONFIG, which matters only when streams share a
+    workspace; the extraction runs on one stream, so it is recorded but
+    not held against it."""
+    import warnings
+
+    from acoss_tpu_torch.benchmarking.algorithms import StrucLaplacian
+
+    fs = _struc_corpus()
+    algo = StrucLaplacian(**STRUC_SMALL, neigs=6, m=6)
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            algo.extract_descriptors(fs, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    alerts = sorted({str(w.message).splitlines()[0] for w in caught
+                     if "determinis" in str(w.message)})
+    print("determinism alerts:", alerts)
+    assert [a for a in alerts if "CUBLAS_WORKSPACE_CONFIG" not in a] == []
+
+
+def test_batch_extract_on_the_card_equals_cpu(dev, tmp_path):
+    """The default profile extracted on the card against the CPU run of
+    the same WAVs: labels and lengths equal, beat frames equal, arrays
+    within 1e-4 of their largest magnitude (cuFFT and the CPU FFT round
+    differently); one hmm_fb launch a song. HPCP picks each frame's 100
+    largest spectral peaks (local maxima of a noisy spectrum), and a
+    near-tied peak can enter or leave with the other FFT's rounding: its
+    cells are within 1e-2 of the frame's unit maximum and at most 1 in
+    100 of them outside 1e-4 (measured on the H100: 3.1e-3 and 1.5 in
+    1,000)."""
+    from acoss_tpu_torch.features import pipeline
+    from acoss_tpu_torch.features.audio import save_wav
+    from acoss_tpu_torch.ops import hmm_cuda
+
+    rng = np.random.default_rng(4)
+    sr = 44100
+    paths = []
+    for i, f0 in enumerate((196.0, 233.1, 261.6)):
+        t = np.arange(int(sr * (8 + 2 * i))) / sr
+        y = sum(np.sin(2 * np.pi * f0 * r * t) / r for r in (1, 1.26, 1.5))
+        for b in np.arange(0.1, t[-1], 0.47):
+            j = int(b * sr)
+            y[j:j + 800] += rng.normal(size=len(y[j:j + 800])) * 0.8
+        p = tmp_path / f"W_{i % 2}" / f"P_{i}.wav"
+        p.parent.mkdir(exist_ok=True)
+        save_wav(str(p), 0.3 * y / np.abs(y).max())
+        paths.append(str(p))
+    labels = [f"W_{i % 2}" for i in range(3)]
+    fn = hmm_cuda.chord_forward_backward
+    before = fn.launches
+    card = pipeline.batch_extract(paths, labels, device=dev)
+    assert fn.launches == before + 3
+    cpu = pipeline.batch_extract(paths, labels, device="cpu")
+    np.testing.assert_array_equal(card.labels, cpu.labels)
+    for k in cpu.features:
+        np.testing.assert_array_equal(card.length(k), cpu.length(k))
+        got, want = card.feature(k), cpu.feature(k)
+        err = np.abs(got - want) / float(np.abs(want).max())
+        if k == "onsets":
+            np.testing.assert_array_equal(got, want)
+        elif k == "hpcp":
+            assert float(err.max()) <= 1e-2
+            assert float(np.mean(err > 1e-4)) <= 1e-2
+        else:
+            assert float(err.max()) <= 1e-4, k

@@ -50,6 +50,19 @@ def test_port_imports_no_jax():
               "acoss_tpu_torch.ops.sparse_gram",
               "acoss_tpu_torch.ops.structure",
               "acoss_tpu_torch.features.rhythm",
+              "acoss_tpu_torch.features.spectral",
+              "acoss_tpu_torch.features.audio",
+              "acoss_tpu_torch.features.onsets",
+              "acoss_tpu_torch.features.hpcp",
+              "acoss_tpu_torch.features.key",
+              "acoss_tpu_torch.features.mfcc",
+              "acoss_tpu_torch.features.chroma",
+              "acoss_tpu_torch.features.chord",
+              "acoss_tpu_torch.features.nsgcq",
+              "acoss_tpu_torch.features.fingerprint",
+              "acoss_tpu_torch.features.pipeline",
+              "acoss_tpu_torch.data.manifest",
+              "acoss_tpu_torch.ops.hmm_cuda",
               "acoss_tpu_torch.ops.similarity_legacy",
               "acoss_tpu_torch.native"):
         assert m in out["modules"]
@@ -68,7 +81,8 @@ def test_library_name_tracks_the_sources(tmp_path):
     assert p.parent == tmp_path and p.name.startswith("libacoss_kernels_")
     assert p == _build.library_path(tmp_path)
     names = {s.name for s in _build.sources()}
-    assert {"alignment.cu", "crp.cu", "knn.cu", "select.cuh"} <= names
+    assert {"alignment.cu", "crp.cu", "hmm.cu", "knn.cu",
+            "select.cuh"} <= names
 
 
 def test_library_declares_every_c_entry_point():
@@ -84,7 +98,8 @@ def test_library_declares_every_c_entry_point():
         r"^(?:int|size_t|const char\*) (acoss_\w+)\(([^)]*)\)", src, re.M))
     assert {"acoss_qmax", "acoss_dmax", "acoss_qmax_uneq", "acoss_sw",
             "acoss_fused_crp", "acoss_binarize", "acoss_knn_mask",
-            "acoss_wcsmssm", "acoss_error_string"} <= set(exported)
+            "acoss_wcsmssm", "acoss_hmm_fb",
+            "acoss_error_string"} <= set(exported)
     assert set(exported) == set(_build.SIGNATURES)
     for name, params in exported.items():
         want = [ctypes.c_void_p if "*" in p else
