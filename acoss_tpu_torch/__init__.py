@@ -13,8 +13,15 @@ package:
                                     aligners; ``*_cuda`` modules hold the
                                     wrappers of the hand-written CUDA kernels
                                     under ``csrc/``
-- ``acoss_tpu_torch.benchmarking``  the pair-grid harness, Serra09 and the
-                                    retrieval evaluation
+- ``acoss_tpu_torch.benchmarking``  the pair-grid harness, the twelve
+                                    algorithm classes and the retrieval
+                                    evaluation
+- ``acoss_tpu_torch.serving``       ``CoverIndex``: 1 x N queries against a
+                                    corpus kept on the device
+- ``acoss_tpu_torch.parallel``      process shards of the pair grid and
+                                    their merge
+- ``acoss_tpu_torch.analytics``     the "what is a cover?" studies
+- ``acoss_tpu_torch.utils``         profiling, stage timing, logging
 """
 
 __version__ = "0.1.0"

@@ -62,9 +62,10 @@ class Serra09(CoverAlgorithm):
         self.do_ssms = do_ssms
         self.ssm_win_mul = ssm_win_mul
         self.ssm_res = ssm_res
-        if do_ssms:
-            self.SIMILARITY_TYPES = Serra09.SIMILARITY_TYPES + (
-                "ssms_scatter_qmax", "ssms_scatter_dmax")
+        # an instance attribute, as in the JAX package: it is part of the
+        # parameter snapshot a serving index stores (`serving._algo_params`)
+        self.SIMILARITY_TYPES = Serra09.SIMILARITY_TYPES + (
+            ("ssms_scatter_qmax", "ssms_scatter_dmax") if do_ssms else ())
 
     def extract_descriptors(self, fs: FeatureSet,
                             device: str | torch.device = "cuda") -> dict:

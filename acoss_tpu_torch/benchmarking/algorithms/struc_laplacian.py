@@ -35,6 +35,7 @@ from acoss_tpu_torch.ops.laplacian import (meet_matrix,
                                            random_walk_laplacian_eigs,
                                            spectral_cluster_sequential)
 from acoss_tpu_torch.ops.structure import laplacian_profile_batch
+from acoss_tpu_torch.utils.profiling import stages
 
 HOP_LENGTH = 512
 SR = 44100
@@ -139,16 +140,18 @@ class StrucLaplacian(CoverAlgorithm):
             # a song's beats are its onsets; W has one more row (the
             # segment past the last onset), which has no beat time
             beats = np.minimum(lengths, [len(o) for o in onsets_list])
-            X, nmeet = laplacian_profile_batch(
-                Wb, beats, times, self.neigs,
-                meet_pad_for(npad, onsets_list), songs=songs,
-                seed=KMEANS_SEED)
-            X = X.cpu().numpy().astype(np.float64)
-            nmeet = nmeet.cpu().numpy()
-            return [np.zeros((1, self.m), dtype=np.float32)
-                    if beats[b] < min_beats
-                    else self._profile_from_curve(X[b, :nmeet[b]])
-                    for b in range(len(onsets_list))]
+            with stages.stage("lap:profile_batch"):
+                X, nmeet = stages.block(laplacian_profile_batch(
+                    Wb, beats, times, self.neigs,
+                    meet_pad_for(npad, onsets_list), songs=songs,
+                    seed=KMEANS_SEED))
+            with stages.stage("lap:readback+curvature"):
+                X = X.cpu().numpy().astype(np.float64)
+                nmeet = nmeet.cpu().numpy()
+                return [np.zeros((1, self.m), dtype=np.float32)
+                        if beats[b] < min_beats
+                        else self._profile_from_curve(X[b, :nmeet[b]])
+                        for b in range(len(onsets_list))]
 
         profiles = structural_fused_w_all(fs, consume=consume, device=device,
                                           **self._fuse_kw())

@@ -29,6 +29,7 @@ from acoss_tpu_torch.features.rhythm import (tempogram_aggregated,
 from acoss_tpu_torch.ops import crp, fusion
 from acoss_tpu_torch.ops.segment import stack_memory, sync_agg
 from acoss_tpu_torch.ops.structure import fused_w_batch
+from acoss_tpu_torch.utils.profiling import stages
 
 #: padded-length bucket and songs per fused-W call of the corpus path
 BUCKET = 128
@@ -165,19 +166,20 @@ def structural_fused_w_all(
     """
     kinds = tuple("cosine" if f == "hpcp" else "euclidean"
                   for f in fuse_features)
-    tgs = [None] * fs.n_songs
-    if "tempogram" in fuse_features:
-        # every song's synced tempogram in a few batched device calls
-        envs = [fs.feature("snovfn")[i, :fs.length("snovfn")[i], 0]
-                for i in range(fs.n_songs)]
-        bnds = [_song_onsets(fs, i, do_sync, downsample_fac)
-                for i in range(fs.n_songs)]
-        tgs = tempogram_aggregated_batch(envs, bnds, tempogram_win,
-                                         device=device)
-    preps = [_prep_base_features(fs, i, chroma_type, do_sync, downsample_fac,
-                                 fuse_features, tempogram_win,
-                                 tempogram_precomputed=tgs[i], device=device)
-             for i in range(fs.n_songs)]
+    with stages.stage("struct:host_prep"):
+        tgs = [None] * fs.n_songs
+        if "tempogram" in fuse_features:
+            # every song's synced tempogram in a few batched device calls
+            envs = [fs.feature("snovfn")[i, :fs.length("snovfn")[i], 0]
+                    for i in range(fs.n_songs)]
+            bnds = [_song_onsets(fs, i, do_sync, downsample_fac)
+                    for i in range(fs.n_songs)]
+            tgs = tempogram_aggregated_batch(envs, bnds, tempogram_win,
+                                             device=device)
+        preps = [_prep_base_features(
+            fs, i, chroma_type, do_sync, downsample_fac, fuse_features,
+            tempogram_win, tempogram_precomputed=tgs[i], device=device)
+            for i in range(fs.n_songs)]
     results = [None] * fs.n_songs
     by_npad: dict = {}
     for i, (_, _, n) in enumerate(preps):
@@ -204,12 +206,15 @@ def structural_fused_w_all(
             Ks = np.array([autotune_k(K, max(int(n), 2)) for n in lengths],
                           np.int32)
             # K is monotone in n, so the bucket's bound holds every song
-            W = fused_w_batch(feats, lengths, Ks, kinds, wins_per_block,
-                              niters=niters, sequential=sequential,
-                              k_static_max=autotune_k(K, npad))
+            with stages.stage("struct:fused_w"):
+                W = stages.block(fused_w_batch(
+                    feats, lengths, Ks, kinds, wins_per_block,
+                    niters=niters, sequential=sequential,
+                    k_static_max=autotune_k(K, npad)))
             if consume is not None:
-                outs = consume(W, lengths, [preps[si][1] for si in songs],
-                               songs)
+                with stages.stage("struct:consume"):
+                    outs = consume(W, lengths,
+                                   [preps[si][1] for si in songs], songs)
                 for b, si in enumerate(chunk):
                     results[si] = outs[b]
             else:

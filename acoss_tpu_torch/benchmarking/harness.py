@@ -54,6 +54,7 @@ from acoss_tpu_torch.data.descstore import (QSCALE, DescriptorStore,
                                             check_stream_consistency,
                                             extract_streamed, upcast_stream)
 from acoss_tpu_torch.data.store import FeatureSet
+from acoss_tpu_torch.utils import profiling as _prof
 
 
 class CoverAlgorithm:
@@ -66,6 +67,13 @@ class CoverAlgorithm:
     DISTANCE_TYPES: tuple = ()
     SYMMETRIC = True
     TILE = 16
+    #: instance attributes that only tune SCORING throughput/numerics (SNF
+    #: precision / update order, ...) and do not change the extracted
+    #: descriptors: a serving `CoverIndex` built under one value answers
+    #: queries correctly under another, so `CoverIndex.load` warns
+    #: instead of refusing when these drift.
+    SCORING_ONLY_PARAMS: frozenset = frozenset(
+        {"sequential", "snf_precision"})
 
     def extract_descriptors(self, fs: FeatureSet,
                             device: str | torch.device = "cuda") -> dict:
@@ -272,8 +280,9 @@ class _TileSweeper:
         similarity type and scatter them into the matrices."""
         if not self._pending:
             return
-        stacked = {k: torch.stack([p[2][k] for p in self._pending])
-                   .cpu().numpy() for k in self.sim_types}
+        with _prof.stages.stage("sweep:flush"):
+            stacked = {k: torch.stack([p[2][k] for p in self._pending])
+                       .cpu().numpy() for k in self.sim_types}
         for b, (ti, tj, _) in enumerate(self._pending):
             ij = np.meshgrid(self._row_idx + ti * self.tile,
                              self._row_idx + tj * self.tile,
@@ -402,8 +411,10 @@ def run_pairwise(
             continue
         row = upcast_stream(block(ti))
         for tj in cols:
-            sweep.submit(ti, tj, algorithm.tile_scores(
-                row, upcast_stream(block(tj))))
+            with _prof.stages.stage("sweep:tile"), \
+                    _prof.step_annotation("tile", ti=ti, tj=tj):
+                scores = algorithm.tile_scores(row, upcast_stream(block(tj)))
+            sweep.submit(ti, tj, scores)
         if verbose:
             sweep.flush()
             print(f"[{algorithm.NAME}] block-row {ti + 1}/{n_tiles} "
@@ -607,14 +618,17 @@ def run_pairwise_bucketed(
                 check_stream_consistency(d, stream_quant, path)
                 descs.append(d)
             else:
-                descs.append(extract_streamed(
-                    algorithm, fss.subset(np.arange(lo, hi)), path,
-                    chunk_songs=stream_chunk, verbose=verbose,
-                    quant=stream_quant,
-                    half_min_bytes=stream_min_bytes, device=device))
+                with _prof.stages.stage("extract:bucket"):
+                    descs.append(extract_streamed(
+                        algorithm, fss.subset(np.arange(lo, hi)), path,
+                        chunk_songs=stream_chunk, verbose=verbose,
+                        quant=stream_quant,
+                        half_min_bytes=stream_min_bytes, device=device))
     else:
-        descs = _split_desc_buckets(
-            algorithm.extract_descriptors(fss, device=device), edges)
+        with _prof.stages.stage("extract"):
+            desc_all = _prof.stages.block(
+                algorithm.extract_descriptors(fss, device=device))
+        descs = _split_desc_buckets(desc_all, edges)
     _sync(device)
     t1 = time.perf_counter()
     if times is not None:
@@ -650,9 +664,12 @@ def run_pairwise_bucketed(
         # must not re-stream the whole store
         row = block(ti)
         for tj in cols:
-            r, c = _pad_tile_pair_axis1(row, block(tj))
-            sweep.submit(ti, tj, algorithm.tile_scores(upcast_stream(r),
-                                                       upcast_stream(c)))
+            with _prof.stages.stage("sweep:tile"), \
+                    _prof.step_annotation("tile", ti=ti, tj=tj):
+                r, c = _pad_tile_pair_axis1(row, block(tj))
+                scores = algorithm.tile_scores(upcast_stream(r),
+                                               upcast_stream(c))
+            sweep.submit(ti, tj, scores)
         if verbose:
             sweep.flush()
             print(f"[{algorithm.NAME}] block-row {ti + 1}/{n_tiles} "
@@ -764,18 +781,22 @@ def run_pairwise_hybrid(
             ThreadPoolExecutor(1) as panel_pool:
         panel_fut = None
         for pi, (p, t_lo, row_tiles, needed) in enumerate(plan):
-            panel = (panel_fut.result() if panel_fut is not None
-                     else load_panel(t_lo))
+            with _prof.stages.stage("hybrid:panel_upload"):
+                panel = (panel_fut.result() if panel_fut is not None
+                         else load_panel(t_lo))
             panel_fut = (panel_pool.submit(load_panel, plan[pi + 1][1])
                          if prefetch_panels and pi + 1 < len(plan)
                          else None)
             futs = deque(prefetch.submit(load_col, tj)
                          for tj in needed[:2])
             for ci, tj in enumerate(needed):
-                col = futs.popleft().result()
-                if ci + 2 < len(needed):
-                    futs.append(prefetch.submit(load_col, needed[ci + 2]))
-                col = upcast_stream(col)
+                with _prof.stages.stage("hybrid:col_tile"), \
+                        _prof.step_annotation("hybrid", panel=p, tj=tj):
+                    col = futs.popleft().result()
+                    if ci + 2 < len(needed):
+                        futs.append(prefetch.submit(load_col,
+                                                    needed[ci + 2]))
+                    col = upcast_stream(col)
                 for ti in row_tiles:
                     if not needs(ti, tj):
                         continue
@@ -826,27 +847,32 @@ def benchmark(
 
     stage = {}
     if n_buckets > 1 and algorithm.full_scores is None:
-        Ds, desc = run_pairwise_bucketed(
-            algorithm, fs, n_buckets=n_buckets, tile=tile, verbose=verbose,
-            checkpoint_path=checkpoint_path, return_desc=True,
-            device=device, times=stage)
-        _sync(device)
+        with _prof.stages.stage("extract+sweep:bucketed"):
+            Ds, desc = run_pairwise_bucketed(
+                algorithm, fs, n_buckets=n_buckets, tile=tile,
+                verbose=verbose, checkpoint_path=checkpoint_path,
+                return_desc=True, device=device, times=stage)
+            _sync(device)
     else:
         t0 = time.perf_counter()
-        desc = algorithm.extract_descriptors(fs, device=device)
-        _sync(device)
+        with _prof.stages.stage("extract"):
+            desc = algorithm.extract_descriptors(fs, device=device)
+            _sync(device)
         t1 = time.perf_counter()
-        Ds = run_pairwise(algorithm, desc, fs.n_songs, tile=tile,
-                          checkpoint_path=checkpoint_path, verbose=verbose,
-                          device=device)
-        _sync(device)
+        with _prof.stages.stage("sweep"):
+            Ds = run_pairwise(algorithm, desc, fs.n_songs, tile=tile,
+                              checkpoint_path=checkpoint_path,
+                              verbose=verbose, device=device)
+            _sync(device)
         stage.update(extract=t1 - t0, sweep=time.perf_counter() - t1)
     t2 = time.perf_counter()
-    Ds = algorithm.post_process(Ds, desc, device=device)
+    with _prof.stages.stage("post_process"):
+        Ds = algorithm.post_process(Ds, desc, device=device)
     out = {}
     for k, D in Ds.items():
         S = -D if k in algorithm.DISTANCE_TYPES else D
-        stats = eval_statistics(S, fs.labels)
+        with _prof.stages.stage("eval"):
+            stats = eval_statistics(S, fs.labels)
         out[k] = stats
         if verbose:
             print(f"[{algorithm.NAME}:{k}] MR={stats.mr:.3g} "

@@ -27,7 +27,25 @@ Da-TACOS-scale mode: descriptors extracted chunk by chunk into a disk
 store under DIR/desc (per-bucket stores with `--n_buckets`), reused by a
 later run, and N x N memmapped score matrices under DIR/scores;
 `--hybrid-panel P` sweeps P-song device panels against column tiles
-streamed from that store.
+streamed from that store. `--num-processes N --process-id I
+[--partial-dir DIR]` sweeps one process's share of the tile grid (whole
+panels with `--hybrid-panel`) into a partial-score file (the reference's
+`-r` array-job mode); `--merge` scatter-adds the partials and evaluates
+(the reference's `-b`). `--stage-times` prints per-stage wall seconds and
+`--profile LOGDIR` writes a `torch.profiler` trace. `-d` is a FeatureSet
+.npz or a directory of the reference's per-track .h5 files, for every
+command.
+
+`python -m acoss_tpu_torch query -a ALGORITHM -d <corpus> -q <queries>
+ [--index-dir DIR] [--quant {half,int8}] [--top K] [--similarity-type T]
+ [--device cuda]` answers 1 x N retrieval against a corpus index (built
+once, kept on the device, saved to and reloaded from DIR) and prints one
+JSON line a query.
+
+`python -m acoss_tpu_torch coverstats -d <features> -o <outdir>
+ [--studies key,tempo,onset,stdev,shapedna,tag] [--tags JSON]
+ [--no-figures] [--device cuda]` runs the "what is a cover?" studies and
+writes their CSV/.npz/SVG artifacts and summary.json.
 """
 
 from __future__ import annotations
@@ -38,6 +56,10 @@ import inspect
 import os
 import re
 import sys
+import time
+
+#: how long a --stream-dir shard waits for process 0's descriptor store
+SHARD_WAIT_S = 24 * 3600.0
 
 
 def _algorithms() -> dict:
@@ -47,6 +69,17 @@ def _algorithms() -> dict:
 
     return {**{c.__name__: c for c in ALL_ALGORITHMS.values()},
             **ALL_ALGORITHMS}
+
+
+def _load_featureset(datapath: str):
+    """A FeatureSet .npz, or a directory of per-track .h5 files."""
+    from acoss_tpu_torch.data.store import FeatureSet
+
+    if os.path.isdir(datapath):
+        from acoss_tpu_torch.data.h5io import feature_set_from_h5_dir
+
+        return feature_set_from_h5_dir(datapath)
+    return FeatureSet.load(datapath)
 
 
 def _stream_quant(args) -> str | None:
@@ -128,33 +161,188 @@ def _cmd_stream(args, algo, fs, ckpt: str | None, csv: str) -> int:
     return 0
 
 
-def cmd_benchmark(args) -> int:
-    import torch
+def _chroma_kwargs(cls, args) -> dict:
+    """-c for the families that read chroma (TGAlg and ANFScattering read
+    novelty functions)."""
+    return {"chroma_type": args.chroma_type} \
+        if "chroma_type" in inspect.signature(cls).parameters else {}
 
+
+def _partial_paths(algo, partial_dir: str):
+    """The partials of `algo` under `partial_dir`, checked as one complete
+    shard set: the stems encode pid/nproc (NAME_part_<pid>_<nproc>); a
+    missing shard would silently zero its block-rows in the merged
+    matrices, and a stale partial of a run with another nproc would add
+    tiles twice. Returns (paths, None) or (None, error message)."""
+    paths = sorted(
+        p for p in glob.glob(os.path.join(glob.escape(partial_dir),
+                                          f"{algo.NAME}_part_*"))
+        if p.endswith(".npz") or os.path.isdir(p))
+    if not paths:
+        return None, f"no partial files under {partial_dir}"
+    tags = []
+    for p in paths:
+        m = re.search(r"_part_(\d+)_(\d+)(?:\.npz)?$", p)
+        if not m:
+            return None, f"unrecognized partial name {p}"
+        tags.append((int(m.group(1)), int(m.group(2))))
+    nprocs = {t[1] for t in tags}
+    if len(nprocs) != 1:
+        return None, (f"partials from different shardings "
+                      f"{sorted(nprocs)} in {partial_dir}; clean out "
+                      f"stale runs")
+    nproc = nprocs.pop()
+    missing = set(range(nproc)) - {t[0] for t in tags}
+    if missing:
+        return None, (f"missing shard(s) {sorted(missing)} of {nproc}; "
+                      f"rerun them before merging")
+    return paths, None
+
+
+def _cmd_merge(args, algo, fs, csv: str) -> int:
+    """--merge: scatter-add the partial-score files written by the
+    process shards (the reference's `-b` / `load_batches`) and
+    evaluate."""
+    from acoss_tpu_torch.data.descstore import DescriptorStore
+    from acoss_tpu_torch.parallel.distributed import merge_partials
+
+    paths, err = _partial_paths(algo, args.partial_dir)
+    if err:
+        print(err, file=sys.stderr)
+        return 1
+    print(f"merging {len(paths)} partials")
+    out_dir = (os.path.join(args.stream_dir, "merged")
+               if args.stream_dir else None)
+    Ds = merge_partials(paths, symmetric=algo.SYMMETRIC, out_dir=out_dir)
+    # post_process only ever needs the descriptors (ChenFusion's per-song
+    # lengths): reuse a streamed store when one exists instead of
+    # re-running the most expensive host stage in the aggregation job
+    desc_path = (os.path.join(args.stream_dir, "desc")
+                 if args.stream_dir else None)
+    if desc_path and os.path.exists(
+            os.path.join(desc_path, DescriptorStore.META)):
+        print(f"reusing descriptor store {desc_path}")
+        desc = DescriptorStore.open(desc_path)
+    else:
+        desc = algo.extract_descriptors(fs, device=args.device)
+    _eval_and_report(algo, Ds, desc, fs.labels, csv, args.device)
+    return 0
+
+
+def _shard_store(args, algo, fs):
+    """The shared descriptor store of a --stream-dir shard: exactly ONE
+    process (0) may build it (concurrent extract_streamed calls would
+    race on the staging files and half-written memmaps); its META file is
+    written only after the final copy pass, so its appearance is the
+    barrier the other shards wait on. Returns the store, or None when
+    process 0 never finished it."""
+    from acoss_tpu_torch.data.descstore import (DescriptorStore,
+                                                check_stream_consistency,
+                                                extract_streamed)
+
+    desc_path = os.path.join(args.stream_dir, "desc")
+    meta = os.path.join(desc_path, DescriptorStore.META)
+    if not os.path.exists(meta) and args.process_id == 0:
+        return extract_streamed(algo, fs, desc_path,
+                                chunk_songs=args.stream_chunk, verbose=True,
+                                quant=_stream_quant(args),
+                                device=args.device)
+    if not os.path.exists(meta):
+        # generous deadline: a Da-TACOS-scale extraction takes hours, but
+        # if process 0 died the other shards must eventually FAIL, not
+        # hang an array job forever
+        deadline = time.time() + SHARD_WAIT_S
+        print(f"waiting for process 0 to build {desc_path} ...",
+              flush=True)
+        while not os.path.exists(meta):
+            if time.time() > deadline:
+                print(f"gave up waiting for {meta} after "
+                      f"{SHARD_WAIT_S / 3600:g} h; did process 0 die?",
+                      file=sys.stderr)
+                return None
+            time.sleep(5.0)
+    desc = DescriptorStore.open(desc_path)
+    check_stream_consistency(desc, _stream_quant(args), desc_path)
+    return desc
+
+
+def _cmd_shard(args, algo, fs) -> int:
+    """One shard of a multi-process sweep (the reference's `-r`): write a
+    partial file; a later --merge run aggregates and evaluates."""
+    from acoss_tpu_torch.parallel.distributed import (
+        run_process_shard, run_process_shard_hybrid)
+
+    if not 0 <= args.process_id < args.num_processes:
+        # schedulers often hand out 1-BASED task ids; failing here beats
+        # an IndexError deep in the shard assignment (and a merge that
+        # would silently zero shard 0's block-rows)
+        print(f"--process-id must be in [0, {args.num_processes}), got "
+              f"{args.process_id}; task ids are 0-based here",
+              file=sys.stderr)
+        return 1
+    # with --stream-dir, descriptors come from the shared disk store and
+    # the partial is a directory of .npy memmaps (nothing dense in RAM)
+    if args.stream_dir:
+        desc = _shard_store(args, algo, fs)
+        if desc is None:
+            return 1
+    else:
+        desc = algo.extract_descriptors(fs, device=args.device)
+    if args.hybrid_panel:
+        path = run_process_shard_hybrid(
+            algo, desc, fs.n_songs, args.process_id, args.num_processes,
+            args.partial_dir, panel_songs=args.hybrid_panel, tile=args.tile,
+            verbose=True, prefetch_panels=not args.no_panel_prefetch,
+            device=args.device)
+    else:
+        path = run_process_shard(
+            algo, desc, fs.n_songs, args.process_id, args.num_processes,
+            args.partial_dir, tile=args.tile, verbose=True,
+            memmap_scores=bool(args.stream_dir), device=args.device)
+    print(f"partial scores written to {path}")
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    from acoss_tpu_torch.utils import profiling
+
+    profiling.stages.enabled = bool(args.stage_times)
+    profiling.stages.reset()
+    try:
+        with profiling.device_trace(args.profile):
+            rc = _cmd_benchmark_inner(args)
+    finally:
+        profiling.stages.enabled = False
+    if args.stage_times:
+        print(profiling.stages.report())
+    if args.profile:
+        print(f"device trace written to "
+              f"{os.path.join(args.profile, profiling.TRACE_FILE)}")
+    return rc
+
+
+def _cmd_benchmark_inner(args) -> int:
     from acoss_tpu_torch.benchmarking.harness import benchmark
-    from acoss_tpu_torch.data.store import FeatureSet
 
     cls = _algorithms()[args.algorithm]
-    params = inspect.signature(cls).parameters
-    # TGAlg and ANFScattering read novelty functions, not chroma
-    kwargs = {"chroma_type": args.chroma_type} \
-        if "chroma_type" in params else {}
+    kwargs = _chroma_kwargs(cls, args)
     if args.snf_precision != "highest":
-        if "snf_precision" not in params:
+        if "snf_precision" not in inspect.signature(cls).parameters:
             print(f"--snf-precision is not supported by {args.algorithm}",
                   file=sys.stderr)
             return 1
         kwargs["snf_precision"] = args.snf_precision
     algo = cls(**kwargs)
-    fs = FeatureSet.load(args.datapath)
+    fs = _load_featureset(args.datapath)
     os.makedirs(args.cachedir, exist_ok=True)
     csv = f"results_{args.shortname}.csv"
+    if args.merge:
+        return _cmd_merge(args, algo, fs, csv)
+    if args.num_processes > 1:
+        return _cmd_shard(args, algo, fs)
     ckpt = None if args.no_checkpoint else os.path.join(
         args.cachedir, f"{algo.NAME}_{args.shortname}_ckpt.npz")
     if args.stream_dir:
-        # benchmark() is not on this path: TF32 flips kNN decisions
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         return _cmd_stream(args, algo, fs, ckpt, csv)
     stats = benchmark(algo, fs, tile=args.tile, results_csv=csv,
                       checkpoint_path=ckpt, verbose=True,
@@ -255,6 +443,69 @@ def cmd_extract(args) -> int:
     return 0
 
 
+def cmd_query(args) -> int:
+    import json
+
+    from acoss_tpu_torch.serving import CoverIndex
+
+    cls = _algorithms()[args.algorithm]
+    algo = cls(**_chroma_kwargs(cls, args))
+    if args.index_dir and os.path.exists(
+            os.path.join(args.index_dir, CoverIndex.META)):
+        print(f"loading index from {args.index_dir}")
+        index = CoverIndex.load(algo, args.index_dir, device=args.device)
+    else:
+        fs = _load_featureset(args.datapath)
+        print(f"building index over {fs.n_songs} songs")
+        index = CoverIndex.build(algo, fs, quant=args.quant, tile=args.tile,
+                                 device=args.device)
+        if args.index_dir:
+            index.save(args.index_dir)
+            print(f"index saved to {args.index_dir}")
+    qfs = _load_featureset(args.querypath)
+    ranked = index.top_k(qfs, k=args.top,
+                         similarity_type=args.similarity_type)
+    for qi, rows in enumerate(ranked):
+        print(json.dumps({"query": str(qfs.track_ids[qi]), "top": rows}))
+    return 0
+
+
+def cmd_coverstats(args) -> int:
+    import json
+
+    from acoss_tpu_torch.analytics.studies import ALL_STUDIES, run_coverstats
+
+    studies = tuple(s.strip() for s in args.studies.split(",") if s.strip())
+    unknown = set(studies) - set(ALL_STUDIES)
+    if unknown:
+        print(f"unknown studies {sorted(unknown)}; choose from "
+              f"{list(ALL_STUDIES)}", file=sys.stderr)
+        return 1
+    pair_tags = None
+    if args.tags:
+        with open(args.tags) as f:
+            pair_tags = json.load(f)
+    elif "tag" in studies:
+        print("the 'tag' study needs --tags <pair-tags.json> "
+              "(`coverstats.py:199-241` consumes per-pair auto-tag "
+              "dicts, which are not derivable from a FeatureSet)",
+              file=sys.stderr)
+        return 1
+    fs = _load_featureset(args.datapath)
+    summary = run_coverstats(
+        fs, args.output, studies=studies, chroma_type=args.chroma_type,
+        figures=not args.no_figures, pair_tags=pair_tags, verbose=True,
+        device=args.device)
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def _device_arg(p, what: str) -> None:
+    p.add_argument("--device", default="cuda",
+                   help=f"torch device of {what} (default cuda; cpu runs "
+                        f"the plain PyTorch versions of the kernels)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="acoss_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -262,7 +513,8 @@ def main(argv=None) -> int:
     b.add_argument("-a", "--algorithm", required=True,
                    choices=sorted(_algorithms()))
     b.add_argument("-d", "--datapath", required=True,
-                   help="FeatureSet .npz (as written by either package)")
+                   help="FeatureSet .npz (as written by either package) or "
+                        "a directory of per-track .h5 files")
     b.add_argument("-s", "--shortname", default="covers80")
     b.add_argument("-c", "--chroma_type", default="hpcp")
     b.add_argument("-t", "--tile", type=int, default=None)
@@ -307,9 +559,23 @@ def main(argv=None) -> int:
                         "panel's upload with the current panel's sweep "
                         "(use when one panel already fills most of the "
                         "device memory)")
-    b.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda; cpu runs "
-                        "the plain PyTorch versions of the kernels)")
+    b.add_argument("--num-processes", type=int, default=1,
+                   help="total processes in a multi-process sweep (the "
+                        "reference's array-job sharding, Serra09.py:210)")
+    b.add_argument("--process-id", type=int, default=0,
+                   help="this process's shard index (0-based)")
+    b.add_argument("--partial-dir", default="partials",
+                   help="directory for per-process partial score files")
+    b.add_argument("--merge", action="store_true",
+                   help="aggregate partial files from --partial-dir and "
+                        "evaluate (the reference's -b/load_batches)")
+    b.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="capture a torch.profiler trace of the run (CPU "
+                        "and CUDA activity) into LOGDIR/trace.json")
+    b.add_argument("--stage-times", action="store_true",
+                   help="print accumulated per-stage wall timings "
+                        "(extract / sweep:tile / sweep:flush / eval ...)")
+    _device_arg(b, "the run")
     b.set_defaults(fn=cmd_benchmark)
 
     e = sub.add_parser("extract", help="extract features from audio")
@@ -334,12 +600,66 @@ def main(argv=None) -> int:
                    help="concatenate <output>.part_*_*.npz shard "
                         "FeatureSets into <output>")
     e.add_argument("--error-log", default="errors.txt")
-    e.add_argument("--device", default="cuda",
-                   help="torch device of the spectral stages (default "
-                        "cuda; cpu runs the plain PyTorch versions)")
+    _device_arg(e, "the spectral stages")
     e.set_defaults(fn=cmd_extract)
+
+    c = sub.add_parser(
+        "coverstats",
+        help="run the 'what is a cover?' studies and write artifacts "
+             "(the reference's coverstats/ scripts)")
+    c.add_argument("-d", "--datapath", required=True,
+                   help="FeatureSet .npz or a directory of track h5 files")
+    c.add_argument("-o", "--output", default="coverstats_out",
+                   help="artifact directory (CSVs, .npz arrays, SVG "
+                        "figures, summary.json)")
+    c.add_argument("--studies", default=",".join(
+        ("key", "tempo", "onset", "stdev", "shapedna")),
+        help="comma-separated subset of key,tempo,onset,stdev,shapedna,"
+             "tag (tag needs --tags)")
+    c.add_argument("-c", "--chroma_type", default="hpcp")
+    c.add_argument("--tags", default=None, metavar="JSON",
+                   help="label -> [tags1, tags2] JSON for the tag study "
+                        "(each tags_i a list of [tag, confidence])")
+    c.add_argument("--no-figures", action="store_true",
+                   help="skip SVG figure emission (needed where "
+                        "matplotlib is not installed)")
+    _device_arg(c, "the studies' SSMs, SNF and distances")
+    c.set_defaults(fn=cmd_coverstats)
+
+    q = sub.add_parser(
+        "query",
+        help="serve 1xN cover-song retrieval against a prebuilt corpus "
+             "index (build once, query many times)")
+    q.add_argument("-a", "--algorithm", required=True,
+                   choices=sorted(_algorithms()))
+    q.add_argument("-d", "--datapath", required=True,
+                   help="corpus FeatureSet .npz or h5 dir (ignored when "
+                        "--index-dir already holds a built index)")
+    q.add_argument("-q", "--querypath", required=True,
+                   help="query FeatureSet .npz or h5 dir")
+    q.add_argument("-c", "--chroma_type", default="hpcp")
+    q.add_argument("-t", "--tile", type=int, default=None)
+    q.add_argument("--index-dir", default=None,
+                   help="persist/reuse the index here (skips corpus "
+                        "extraction on later invocations)")
+    q.add_argument("--quant", choices=("half", "int8"), default=None,
+                   help="quantize the corpus descriptors kept on the "
+                        "device (2x/4x smaller; dequantized a tile)")
+    q.add_argument("--top", type=int, default=10)
+    q.add_argument("--similarity-type", default=None,
+                   help="channel to rank by (default: the algorithm's "
+                        "first similarity type)")
+    _device_arg(q, "the index and the queries")
+    q.set_defaults(fn=cmd_query)
 
     args = parser.parse_args(argv)
     if args.cmd == "benchmark" and args.hybrid_panel and not args.stream_dir:
         parser.error("--hybrid-panel needs --stream-dir")
+    import torch
+
+    # TF32 flips kNN decisions: every command keeps fp32 matmuls (the
+    # merge, shard, stream, query and coverstats paths do not go through
+    # benchmark(), which switches it off itself)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return args.fn(args)

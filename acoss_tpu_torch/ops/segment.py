@@ -5,9 +5,10 @@ before any pair is scored (the reference's `librosa.util.sync` over
 `np.arange(0, L, fac)`): `uniform_downsample_batch` groups songs by padded
 length and aggregates them in a few batched calls on `device`.
 
-`fix_frames`, `sync_agg` (beat-synchronous aggregation, FTM2D) and
-`stack_memory` (ChenFusion's delay embedding) are host numpy, copies of
-the JAX package's functions: they run once per song on ragged data.
+`fix_frames`, `sync_agg` (beat-synchronous aggregation, FTM2D),
+`uniform_downsample` (one song, the shape-DNA study) and `stack_memory`
+(ChenFusion's delay embedding) are host numpy, copies of the JAX
+package's functions: they run once per song on ragged data.
 """
 
 from __future__ import annotations
@@ -40,6 +41,30 @@ def sync_agg(X: np.ndarray, boundaries: np.ndarray,
     for k in range(len(b) - 1):
         out[k] = np.median(X[b[k]:b[k + 1]], axis=0)
     return out
+
+
+def _uniform_median(X: np.ndarray, fac: int) -> np.ndarray:
+    """Median over fixed windows of `fac` frames (+ remainder window) --
+    the reshape fast path of `uniform_downsample`."""
+    L, d = X.shape
+    nfull = L // fac
+    out_full = np.median(
+        X[:nfull * fac].reshape(nfull, fac, d), axis=1)
+    if L % fac:
+        rem = np.median(X[nfull * fac:], axis=0, keepdims=True)
+        return np.concatenate([out_full, rem], axis=0)
+    return out_full
+
+
+def uniform_downsample(X: np.ndarray, fac: int,
+                       aggregate: str = "median") -> np.ndarray:
+    """Downsample one song's (L, d) frames by aggregating windows of `fac`
+    frames on the host -- the reference's `librosa.util.sync(X.T,
+    np.arange(0, L, fac), ...)` (`Serra09.py:104`). The shape-DNA study
+    calls it once a song; the sweeps use `uniform_downsample_batch`."""
+    if aggregate == "median":
+        return _uniform_median(np.asarray(X), fac)
+    return sync_agg(X, np.arange(0, X.shape[0], fac), aggregate)
 
 
 def stack_memory(X: np.ndarray, n_steps: int, delay: int = 1) -> np.ndarray:

@@ -47,6 +47,18 @@ songs, 210 tiles, 12,720 pairs):
   recomputed by the plain versions, a tile's split, one chunk's
   eigenvector, k-means and SVD stages timed, and a second `benchmark()`
   whose score matrices and MAP must equal the first's;
+- an fp32 `CoverIndex.build` (`serving_fp32`): the last 16 songs as
+  queries, their rows == the main path's swept scores bit for bit;
+- `shards`: four `python -m acoss_tpu_torch benchmark --num-processes 4
+  --process-id i` processes at once and the CLI's `--merge`, == the
+  unsharded sweep bit for bit with its MAP; the four shards run in this
+  process launch what the unsharded sweep launches; the same from a
+  `--stream-dir --stream-int8 --hybrid-panel 64` store (process 0 builds
+  it) against the unsharded hybrid sweep; a missing shard and a 1-based
+  id return 1; one `--stage-times --profile` run;
+- `coverstats`: the CLI's five default studies and `tag`, no figures; one
+  kNN-mask launch a song in the shape-DNA study, its first three == plain
+  bit for bit, 8 songs' eigenvalues within 1e-4 of the plain path's;
 
 then Serra09 at Da-TACOS song geometry through the sweep engines
 (`datacos_geometry`: 600 songs of a `LazySyntheticCorpus`, 40 cliques x
@@ -55,7 +67,13 @@ sweep of the dequantized store, the bucketed sweep streamed from
 per-bucket int8 stores into memmapped scores, killed half way and resumed
 from its ledger, and the hybrid 128-song-panel sweep; all bit-equal to
 their plain references, with the device's idle share on the bucketed
-sweep); and last the extraction layer from audio (`extract`: 16
+sweep); the query path at that geometry (`serving`: 2,016 songs, 150
+cliques x 13 + 66 distractors, in one int8 store; P_0 of cliques 0-15
+held out as 16 queries against a `CoverIndex` of the other 2,000, saved
+and loaded back; the query rows == the sweep's last two block-rows bit for
+bit, every query's top 10 in its clique, qmax / dmax / fused CRP launched
+once / once / twice a corpus tile; cold and warm latency at nq = 1 and 8);
+and last the extraction layer from audio (`extract`: 16
 placeholder WAVs from `scripts/torch_covers80_placeholder.py` through
 `batch_extract` with the default profile, all 16 extracted with one
 launch a song of the chord HMM's forward-backward kernel, `hmm_fb`, held
@@ -641,7 +659,7 @@ def phase_main_path(dev, fs, desc: dict) -> dict:
     n = _first_block_row(algo, desc, Ds, fs.n_songs)
     _phase("main_path", f"first block-row ({n} tiles) recomputed by the "
            f"plain versions on {dev}: identical scores")
-    return counts
+    return counts, Ds
 
 
 def phase_early_snf(dev, fs) -> tuple[dict, dict]:
@@ -1056,11 +1074,7 @@ def phase_datacos_geometry(dev) -> dict:
     n = corpus.n_songs
     pairs = n * (n - 1) // 2
     T = _swept_tiles(n, Serra09.TILE)
-
-    def launches_for(tiles: int) -> dict:
-        return {"qmax": tiles, "dmax": tiles, "fused_crp": 2 * tiles}
-
-    expect = launches_for(T)
+    expect = _serra_launches(T)
 
     def check_map(what: str, Ds: dict, labels) -> dict:
         stats = {k: eval_statistics(np.asarray(D), labels)
@@ -1077,7 +1091,7 @@ def phase_datacos_geometry(dev) -> dict:
 
     def timed(what: str, run, tiles: int):
         t0 = time.perf_counter()
-        out, _ = _counted(f"{name} {what}", run, launches_for(tiles))
+        out, _ = _counted(f"{name} {what}", run, _serra_launches(tiles))
         return out, time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1149,7 +1163,7 @@ def phase_datacos_geometry(dev) -> dict:
 
         t0 = time.perf_counter()
         killed, _ = _counted(f"{name} bucketed (killed)", killed_run,
-                             launches_for(killed_at))
+                             _serra_launches(killed_at))
         t_killed = time.perf_counter() - t0
         if not killed:
             raise AssertionError(f"{name}: the bucketed sweep was not killed")
@@ -1165,7 +1179,7 @@ def phase_datacos_geometry(dev) -> dict:
                 f"{name} bucketed (resumed)",
                 lambda: harness.run_pairwise_bucketed(
                     Serra09(), fs, times=bucket_times, **bucket_kw),
-                launches_for(T - ledger_done))
+                _serra_launches(T - ledger_done))
         t_resumed = time.perf_counter() - t0
         busy_s = _device_busy_ms(prof) / 1e3
         idle = 1 - busy_s / bucket_times["sweep"]
@@ -1924,6 +1938,498 @@ def phase_extract(dev) -> tuple[dict, dict]:
     return kernel, counts
 
 
+# ---------------------------------------------------------------------------
+# serving, process shards and coverstats
+# ---------------------------------------------------------------------------
+
+def _serra_launches(tiles: int) -> dict:
+    """qmax, dmax and the fused CRP of `tiles` Serra09 tile calls."""
+    return {"qmax": tiles, "dmax": tiles, "fused_crp": 2 * tiles}
+
+
+def _ms_stats(seconds: list) -> str:
+    ms = 1e3 * np.asarray(seconds)
+    return (f"p50 {np.percentile(ms, 50):.2f} ms, p99 "
+            f"{np.percentile(ms, 99):.2f} ms over {len(ms)} warm calls")
+
+
+def phase_serving_fp32(dev, fs, Ds: dict) -> None:
+    """An fp32 `CoverIndex.build` over the 160-song corpus answers the
+    main path's swept scores: for each of the last 16 songs as a query,
+    its row against every earlier song (the pairs the symmetric sweep
+    scored with the query as the row song) bit for bit."""
+    from acoss_tpu_torch.benchmarking.algorithms import Serra09
+    from acoss_tpu_torch.serving import CoverIndex
+
+    name = "serving_fp32"
+    t0 = time.perf_counter()
+    index = CoverIndex.build(Serra09(), fs, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    Q = np.arange(fs.n_songs - 16, fs.n_songs)
+    t0 = time.perf_counter()
+    S = index.query(fs.subset(Q))
+    t_query = time.perf_counter() - t0
+    for k in Serra09.SIMILARITY_TYPES:
+        for i, q in enumerate(Q):
+            if not np.array_equal(S[k][i, :q], Ds[k][q, :q]):
+                raise AssertionError(
+                    f"{name}: query {q} {k} != the main path's row at "
+                    f"{int((S[k][i, :q] != Ds[k][q, :q]).sum())} pairs")
+    _phase(name, f"CoverIndex.build(Serra09) over {fs.n_songs} songs "
+           f"{t_build:.2f} s (extraction included); 16 queries "
+           f"{t_query:.2f} s (extraction included); rows == the main "
+           f"path's swept scores bit for bit on {int(Q.sum())} pairs a "
+           f"channel")
+
+
+def phase_serving(dev) -> dict:
+    """The query path at Da-TACOS song geometry: a LazySyntheticCorpus of
+    150 cliques x 13 + 66 distractors (2,016 songs); performance P_0 of
+    cliques 0-15 held out as 16 queries, the other 2,000 songs the index.
+    All 2,016 are extracted into one int8 store (queries last, so queries
+    and corpus share one padded width); the CoverIndex is built from the
+    store's first 2,000 rows as `load` builds it, saved and loaded back.
+    The 16 query rows must equal the last two block-rows of a sweep of the
+    whole store bit for bit, each query's top 10 on chroma_qmax must be
+    members of its clique, and a query batch launches qmax, dmax and the
+    fused CRP once, once and twice a corpus tile."""
+    from acoss_tpu_torch.benchmarking import harness
+    from acoss_tpu_torch.benchmarking.algorithms import Serra09
+    from acoss_tpu_torch.data import LazySyntheticCorpus
+    from acoss_tpu_torch.data.descstore import extract_streamed
+    from acoss_tpu_torch.serving import CoverIndex
+
+    name = "serving"
+    corpus = LazySyntheticCorpus(n_cliques=150, clique_size=13,
+                                 n_distractors=66, base_duration=300.0)
+    n = corpus.n_songs
+    held = np.arange(16) * corpus.clique_size        # W_c/P_0, c < 16
+    order = np.concatenate([np.setdiff1d(np.arange(n), held), held])
+    nq, nc, T = len(held), n - len(held), Serra09.TILE
+    labels, ids = corpus.labels[order], corpus.track_ids[order]
+    if nc % T:
+        raise AssertionError(f"{name}: {nc} corpus songs is not a whole "
+                             f"number of tiles")
+
+    class Reordered:
+        """The corpus with the held-out queries last."""
+        n_songs = n
+
+        @staticmethod
+        def subset(idx):
+            return corpus.subset(order[np.asarray(idx)])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        store = extract_streamed(Serra09(), Reordered(), f"{tmp}/store",
+                                 quant="int8", half_min_bytes=16384,
+                                 device=dev)
+        t_extract = time.perf_counter() - t0
+        if not (store["chroma"].dtype == store["mfcc"].dtype == np.int8):
+            raise AssertionError(f"{name}: the store is not int8")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = CoverIndex(Serra09(), {k: v[:nc] for k, v in store.items()},
+                           nc, ids=[str(i) for i in ids[:nc]], device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        qdesc = {k: np.array(v[nc:]) for k, v in store.items()}
+
+        def batch(m: int) -> dict:
+            return {k: v[:m] for k, v in qdesc.items()}
+
+        # cold: the first call at each batch width
+        cold = {}
+        for m in (1, T):
+            t0 = time.perf_counter()
+            index.query_descriptors(batch(m), m)
+            cold[m] = time.perf_counter() - t0
+        S, counts = _counted(name, lambda: index.query_descriptors(qdesc, nq),
+                             _serra_launches(index.n_tiles))
+        warm = {}
+        for m in (1, T):
+            warm[m] = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                index.query_descriptors(batch(m), m)
+                warm[m].append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        t0 = time.perf_counter()
+        index.save(f"{tmp}/index")
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = CoverIndex.load(Serra09(), f"{tmp}/index", device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        again = loaded.query_descriptors(qdesc, nq)
+        for k in S:
+            if not np.array_equal(again[k], S[k]):
+                raise AssertionError(f"{name}: the loaded index answers "
+                                     f"{k} differently from the built one")
+
+        t0 = time.perf_counter()
+        ref = harness.run_pairwise(
+            Serra09(), store, n, device=dev, skip_symmetrize=True,
+            tile_filter=lambda ti, tj: ti >= nc // T)
+        t_sweep = time.perf_counter() - t0
+        for k in Serra09.SIMILARITY_TYPES:
+            want = ref[k][nc:, :nc]
+            if not np.array_equal(S[k], want):
+                raise AssertionError(
+                    f"{name}: query rows {k} != the sweep's at "
+                    f"{int((S[k] != want).sum())} pairs")
+    for q in range(nq):
+        top = np.argsort(-S["chroma_qmax"][q], kind="stable")[:10]
+        if not (labels[top] == labels[nc + q]).all():
+            raise AssertionError(f"{name}: query {ids[nc + q]}'s top 10 "
+                                 f"holds {list(labels[top])}")
+    _phase(name, f"{n} songs ({corpus.n_cliques} x {corpus.clique_size} + "
+           f"{corpus.n_distractors}), {nq} held out; int8 store of all "
+           f"{n} at width {store['chroma'].shape[1]}: extract "
+           f"{t_extract:.2f} s; index of {nc} songs ({index.n_tiles} "
+           f"tiles) build {t_build:.3f} s, save {t_save:.3f} s, load "
+           f"{t_load:.3f} s (answers == the built index); launches a "
+           f"{nq}-query batch " + ", ".join(f"{k} {v}" for k, v in
+                                            counts.items()))
+    _phase(name, f"query rows == the sweep's last {nq // T} block-rows "
+           f"bit for bit ({t_sweep:.2f} s); every query's top 10 on "
+           f"chroma_qmax in its own clique")
+    for m in (1, T):
+        p50 = float(np.percentile(warm[m], 50))
+        _phase(name, f"nq={m}: cold {1e3 * cold[m]:.2f} ms, warm "
+               f"{_ms_stats(warm[m])}; {m / p50:.2f} queries/s, "
+               f"{m * nc / p50:.1f} scored pairs/s")
+    _phase(name, f"peak device memory {peak:.2f} GiB")
+    return counts
+
+
+def _cli(args: list) -> tuple:
+    """`python -m acoss_tpu_torch <args>` in this process: its exit code
+    and standard output."""
+    import io
+
+    from acoss_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    return rc, buf.getvalue()
+
+
+def _cli_maps(out: str) -> dict:
+    """{channel: the MAP text} of the CLI's report lines."""
+    return {ln.split(":")[0][len("Serra09_"):]: ln.split("MAP=")[1].split()[0]
+            for ln in out.splitlines()
+            if ln.startswith("Serra09_") and "MAP=" in ln}
+
+
+def _check_cli_maps(what: str, out: str, Ds: dict, labels) -> None:
+    from acoss_tpu_torch.benchmarking.evaluation import eval_statistics
+
+    want = {k: f"{eval_statistics(np.asarray(D), labels).map:.4g}"
+            for k, D in Ds.items()}
+    got = _cli_maps(out)
+    if got != want:
+        raise AssertionError(f"{what}: MAP {got} != the unsharded sweep's "
+                             f"{want}")
+
+
+def phase_shards(dev, fs) -> dict:
+    """Process-sharded sweeps of the 160-song corpus: four shard processes
+    of `python -m acoss_tpu_torch benchmark --num-processes 4` at once,
+    then the CLI's `--merge` (in this process), held to the unsharded
+    sweep bit for bit (and its MAP); the four shards' launches, counted in this process, sum to the
+    unsharded sweep's; then the same from a --stream-dir store with
+    --hybrid-panel 64 (process 0 builds the store, the others reuse it)
+    against the unsharded hybrid sweep; a missing shard and a 1-based id
+    each return 1; one `--stage-times --profile` run."""
+    import glob
+    import shutil
+
+    from acoss_tpu_torch.benchmarking import harness
+    from acoss_tpu_torch.benchmarking.algorithms import Serra09
+    from acoss_tpu_torch.data.descstore import DescriptorStore
+    from acoss_tpu_torch.parallel import (assign_block_rows, merge_partials,
+                                          run_process_shard)
+
+    name = "shards"
+    n, T = fs.n_songs, Serra09.TILE
+    n_tiles = -(-n // T)
+    tiles = _swept_tiles(n, T)
+    nproc, panel = 4, 64
+    types = Serra09.SIMILARITY_TYPES
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        fsp = f"{tmp}/fs.npz"
+        fs.save(fsp)
+        common = ["benchmark", "-a", "Serra09", "-d", fsp, "-s", "shards",
+                  "--device", str(dev)]
+        algo = Serra09()
+        desc = algo.extract_descriptors(fs, device=dev)
+        ref = harness.run_pairwise(algo, desc, n, device=dev)
+
+        # the shard processes, all at once; then the merge
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(
+            os.path.abspath(__file__))}
+        cmd = [sys.executable, "-m", "acoss_tpu_torch"] + common
+
+        def spawn(extra):
+            return subprocess.Popen(cmd + extra, cwd=tmp, env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+
+        t0 = time.perf_counter()
+        procs = [spawn(["--num-processes", str(nproc), "--process-id",
+                        str(i), "--partial-dir", f"{tmp}/parts"])
+                 for i in range(nproc)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t_shards = time.perf_counter() - t0
+        for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode:
+                raise AssertionError(f"{name}: shard process {i} exited "
+                                     f"{p.returncode}: {err[-2000:]}")
+        t0 = time.perf_counter()
+        rc, merged_out = _cli(common + ["--merge", "--partial-dir",
+                                        f"{tmp}/parts"])
+        t_merge = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"{name}: the merge returned {rc}")
+        _check_cli_maps(f"{name} merge", merged_out, ref, fs.labels)
+        parts = sorted(glob.glob(f"{tmp}/parts/Serra09_part_*"))
+        merged = merge_partials(parts)
+        for k in types:
+            if not np.array_equal(merged[k], ref[k]):
+                raise AssertionError(f"{name}: the shard processes' merged "
+                                     f"{k} != the unsharded sweep")
+
+        # the same shards in this process, counted
+        rows = assign_block_rows(n_tiles, nproc)
+        total = dict.fromkeys(_serra_launches(0), 0)
+        t0 = time.perf_counter()
+        for i in range(nproc):
+            _, c = _counted(f"{name} shard {i}", lambda: run_process_shard(
+                algo, desc, n, i, nproc, f"{tmp}/inproc", device=dev),
+                _serra_launches(int(sum(rows[i] + 1))))
+            for k, v in c.items():
+                total[k] += v
+        t_inproc = time.perf_counter() - t0
+        if total != _serra_launches(tiles):
+            raise AssertionError(f"{name}: the shards launched {total}, the "
+                                 f"unsharded sweep {_serra_launches(tiles)}")
+
+        # from a --stream-dir store, whole 64-song panels a shard
+        sd, p8 = f"{tmp}/stream", f"{tmp}/parts8"
+        stream = ["--stream-dir", sd, "--stream-int8"]
+        per_panel = panel // T
+        prow = assign_block_rows(-(-n_tiles // per_panel), nproc)
+        shard_tiles = [sum(ti + 1 for p in prow[i] for ti in range(
+            p * per_panel, min((p + 1) * per_panel, n_tiles)))
+            for i in range(nproc)]
+        if sum(shard_tiles) != tiles:
+            raise AssertionError(f"{name}: the panels hold {shard_tiles} "
+                                 f"tiles, the sweep {tiles}")
+        t0 = time.perf_counter()
+        for i in range(nproc):
+            (rc, out), _ = _counted(
+                f"{name} hybrid shard {i}", lambda: _cli(
+                    common + stream + ["--hybrid-panel", str(panel),
+                                       "--num-processes", str(nproc),
+                                       "--process-id", str(i),
+                                       "--partial-dir", p8]),
+                _serra_launches(shard_tiles[i]))
+            if rc:
+                raise AssertionError(f"{name}: hybrid shard {i} returned "
+                                     f"{rc}")
+        rc, out = _cli(common + stream + ["--merge", "--partial-dir", p8])
+        t_hybrid = time.perf_counter() - t0
+        if rc or "reusing descriptor store" not in out:
+            raise AssertionError(f"{name}: the hybrid merge returned {rc}")
+        store = DescriptorStore.open(f"{sd}/desc")
+        href = harness.run_pairwise_hybrid(
+            Serra09(), store, n, panel_songs=panel, device=dev,
+            scores_dir=f"{tmp}/hybrid_ref")
+        for k in types:
+            if not np.array_equal(np.load(f"{sd}/merged/{k}.npy"),
+                                  np.asarray(href[k])):
+                raise AssertionError(f"{name}: the hybrid shards' merged "
+                                     f"{k} != the unsharded hybrid sweep")
+        _check_cli_maps(f"{name} hybrid merge", out, href, fs.labels)
+        dtypes = sorted({str(v.dtype) for v in store.values()})
+
+        # bad shard sets
+        os.makedirs(f"{tmp}/missing")
+        for p in parts:
+            if not p.endswith("_part_2_4.npz"):
+                shutil.copy(p, f"{tmp}/missing")
+        bad = {"missing shard": common + ["--merge", "--partial-dir",
+                                          f"{tmp}/missing"],
+               "1-based id": common + ["--num-processes", str(nproc),
+                                       "--process-id", str(nproc)]}
+        for what, args in bad.items():
+            with contextlib.redirect_stderr(open(os.devnull, "w")):
+                rc, _ = _cli(args)
+            if rc != 1:
+                raise AssertionError(f"{name}: a {what} returned {rc}")
+
+        # --stage-times and --profile
+        t0 = time.perf_counter()
+        rc, out = _cli(common + ["--no-checkpoint", "--stage-times",
+                                 "--profile", f"{tmp}/prof"])
+        t_prof = time.perf_counter() - t0
+        trace = f"{tmp}/prof/trace.json"
+        report = [ln for ln in out.splitlines()
+                  if ln.split()[:1] and ln.split()[0] in
+                  ("stage", "extract", "sweep", "sweep:tile", "sweep:flush",
+                   "post_process", "eval")]
+        if rc or not os.path.getsize(trace) or not any(
+                ln.startswith("sweep:tile") for ln in report):
+            raise AssertionError(f"{name}: --stage-times --profile gave rc "
+                                 f"{rc}, report {report}")
+        trace_mb = os.path.getsize(trace) / 2 ** 20
+    _phase(name, f"{nproc} shard processes {t_shards:.2f} s (concurrent), "
+           f"merge {t_merge:.2f} s: == the unsharded sweep bit for bit, "
+           f"MAP " + ", ".join(f"{k} {v}" for k, v in
+                               _cli_maps(merged_out).items()))
+    _phase(name, f"in this process: {nproc} shards {t_inproc:.2f} s, "
+           f"launches " + ", ".join(f"{k} {v}" for k, v in total.items())
+           + f" == the unsharded sweep's ({tiles} tiles)")
+    _phase(name, f"--stream-dir store ({', '.join(dtypes)}; the CLI "
+           f"quantizes keys of >= 64 KB a song) + --hybrid-panel {panel}: "
+           f"{nproc} shards ({shard_tiles} tiles, launches counted) and the "
+           f"merge {t_hybrid:.2f} s, == the "
+           f"unsharded hybrid sweep bit for bit, same MAP; a missing shard "
+           f"and a 1-based id return 1")
+    _phase(name, f"--stage-times --profile run {t_prof:.2f} s, trace "
+           f"{trace_mb:.1f} MiB; " + " | ".join(
+               " ".join(ln.split()) for ln in report))
+    return total
+
+
+@contextlib.contextmanager
+def _clocked(targets: list, seconds: dict):
+    """Time each (module, attribute) function while the block runs, ending
+    each call at a device synchronize; seconds go to seconds[attribute]."""
+    reals = [(m, a, getattr(m, a)) for m, a in targets]
+
+    def clocked(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    for m, a, fn in reals:
+        setattr(m, a, clocked(a, fn))
+    try:
+        yield
+    finally:
+        for m, a, fn in reals:
+            setattr(m, a, fn)
+
+
+def phase_coverstats(dev, fs) -> dict:
+    """`python -m acoss_tpu_torch coverstats` over the 160-song corpus: the
+    five default studies and `tag` (tags the smoke writes), no figures.
+    The shape-DNA study launches the kNN row mask once a song; its first
+    three launches equal the plain version bit for bit, and the first 8
+    songs' eigenvalues from the card are within 1e-4 of the plain path's
+    on the card."""
+    from acoss_tpu_torch.analytics import coverstats as cs
+    from acoss_tpu_torch.analytics import song_structure, studies
+    from acoss_tpu_torch.ops import crp_cuda
+
+    name = "coverstats"
+    n = fs.n_songs
+    rng = np.random.default_rng(0)
+    vocab = ["rock", "pop", "jazz", "blues", "folk", "soul", "metal"]
+    tags = {str(lbl): [[[str(t), float(c)] for t, c in zip(
+        rng.choice(vocab, 3, replace=False), rng.random(3))]
+        for _ in range(2)] for lbl in sorted(set(fs.labels))}
+    real = crp_cuda.knn_mask_matrix_batch
+    first = []
+
+    def spy(W, k, largest=True):
+        out = real(W, k, largest=largest)
+        if len(first) < 3:
+            first.append((W.clone(), k.clone(), largest, out.clone()))
+        return out
+
+    # the wrapper counts its launches through its module-level name
+    spy.launches = 0
+    seconds = {}
+    targets = [(cs, "key_table"), (cs, "tempo_table"), (cs, "tag_stats"),
+               (studies, "onset_timing_study"),
+               (studies, "onset_stdev_study"),
+               (studies, "shape_dna_study")]
+    with tempfile.TemporaryDirectory() as tmp:
+        fs.save(f"{tmp}/fs.npz")
+        with open(f"{tmp}/tags.json", "w") as f:
+            json.dump(tags, f)
+        args = ["coverstats", "-d", f"{tmp}/fs.npz", "-o", f"{tmp}/out",
+                "--studies", "key,tempo,onset,stdev,shapedna,tag",
+                "--tags", f"{tmp}/tags.json", "--no-figures",
+                "--device", str(dev)]
+        crp_cuda.knn_mask_matrix_batch = spy
+        try:
+            with _clocked(targets, seconds):
+                t0 = time.perf_counter()
+                (rc, _), counts = _counted(name, lambda: _cli(args),
+                                           {"knn_mask": n})
+                t_all = time.perf_counter() - t0
+        finally:
+            crp_cuda.knn_mask_matrix_batch = real
+        if rc:
+            raise AssertionError(f"{name}: the CLI returned {rc}")
+        with open(f"{tmp}/out/summary.json") as f:
+            summary = json.load(f)
+        with np.load(f"{tmp}/out/shapedna.npz") as z:
+            ws = z["ws"]
+    if set(summary["studies"]) != set(studies.ALL_STUDIES) \
+            or ws.shape[0] != n or not np.isfinite(ws).all():
+        raise AssertionError(f"{name}: summary {summary}, ws {ws.shape}")
+    for W, k, largest, out in first:
+        want = crp_cuda.knn_mask_matrix_ref(W, k, largest=largest)
+        if not (torch.equal(out, want)
+                and torch.equal(torch.signbit(out), torch.signbit(want))):
+            raise AssertionError(f"{name}: knn_mask kernel != plain on a "
+                                 f"{tuple(W.shape)} stack")
+    ct = "hpcp"
+    worst = 0.0
+    for i in range(8):
+        h = fs.feature(ct)[i, :fs.length(ct)[i]]
+        m = fs.feature("mfcc_htk")[i, :fs.length("mfcc_htk")[i]]
+        card = song_structure.get_shape_dna(h, m, device=dev)["w"]
+        crp_cuda.knn_mask_matrix_batch = crp_cuda.knn_mask_matrix_ref
+        try:
+            plain = song_structure.get_shape_dna(h, m, device=dev)["w"]
+        finally:
+            crp_cuda.knn_mask_matrix_batch = real
+        if not np.array_equal(card, ws[i]):
+            raise AssertionError(f"{name}: song {i}'s eigenvalues do not "
+                                 f"repeat")
+        worst = max(worst, float(np.abs(card - plain).max()))
+    if worst > 1e-4:
+        raise AssertionError(f"{name}: eigenvalues {worst} from the plain "
+                             f"path's")
+    _phase(name, f"coverstats CLI, 6 studies over {n} songs {t_all:.2f} s: "
+           + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+           + f"; knn_mask launches {counts.get('knn_mask', 0)} (one a "
+           f"song), the first 3 == plain bit for bit on "
+           f"{[tuple(w.shape) for w, *_ in first]}; 8 songs' eigenvalues "
+           f"repeat the CLI's and are {worst:.3g} from the plain path's")
+    _phase(name, "summary.json " + json.dumps(summary, sort_keys=True))
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi, kind = phase_environment()
@@ -1938,7 +2444,10 @@ def main() -> int:
            f" ({time.perf_counter() - t0:.1f} s)")
     desc = _descriptors(dev, fs)
     kernels["fused_crp"] = phase_fused_crp(desc)
-    launches = {"main_path": phase_main_path(dev, fs, desc)}
+    launches = {}
+    launches["main_path"], main_Ds = phase_main_path(dev, fs, desc)
+    phase_serving_fp32(dev, fs, main_Ds)
+    del main_Ds
     # qmax_uneq's entry is timed at its path's shapes, one CRP a launch
     # (phase_aligners printed its time on the bench batch)
     launches["legacy"], kernels["qmax_uneq"] = phase_legacy(dev, desc)
@@ -1968,8 +2477,16 @@ def main() -> int:
             launches[phase.__name__[len("phase_"):]] = counts
         _phase(phase.__name__[len("phase_"):],
                f"phase {time.perf_counter() - t0:.1f} s")
+    for name, phase in (("shards", phase_shards),
+                        ("coverstats", phase_coverstats)):
+        t0 = time.perf_counter()
+        launches[name] = phase(dev, fs)
+        _phase(name, f"phase {time.perf_counter() - t0:.1f} s")
     del fs
     launches["datacos_geometry"] = phase_datacos_geometry(dev)
+    t0 = time.perf_counter()
+    launches["serving"] = phase_serving(dev)
+    _phase("serving", f"phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels["hmm_fb"], launches["extract"] = phase_extract(dev)
     _phase("extract", f"phase {time.perf_counter() - t0:.1f} s")

@@ -853,3 +853,93 @@ def test_batch_extract_on_the_card_equals_cpu(dev, tmp_path):
             assert float(np.mean(err > 1e-4)) <= 1e-2
         else:
             assert float(err.max()) <= 1e-4, k
+
+
+def _serving_corpus():
+    # 16 songs: two Serra09 tiles
+    return make_synthetic_dataset(n_cliques=8, clique_size=2, seed=1,
+                                  base_duration=30.0)
+
+
+def test_index_query_rows_equal_sweep_rows_on_the_card(dev):
+    """A CoverIndex on the card answers the query rows of the sweep over
+    the union bit for bit (queries and corpus from one extraction, so one
+    padded width), with qmax, dmax and the fused CRP launched once, once
+    and twice a corpus tile."""
+    from acoss_tpu_torch.benchmarking.harness import run_pairwise
+    from acoss_tpu_torch.serving import CoverIndex
+
+    fs = _serving_corpus()
+    algo = Serra09()
+    desc = {k: np.asarray(v) for k, v in
+            algo.extract_descriptors(fs, device=dev).items()}
+    n, T = fs.n_songs, algo.TILE
+    nc = n - T                           # the last block-row are queries
+    D = run_pairwise(algo, desc, n, device=dev,
+                     tile_filter=lambda ti, tj: ti == n // T - 1,
+                     skip_symmetrize=True)
+    index = CoverIndex(algo, {k: v[:nc] for k, v in desc.items()}, nc,
+                       device=dev)
+    wrappers = (alignment_cuda.qmax_batch_cuda,
+                alignment_cuda.dmax_batch_cuda,
+                crp_cuda.fused_binary_crp_batch)
+    before = [w.launches for w in wrappers]
+    got = index.query_descriptors({k: v[nc:] for k, v in desc.items()}, T)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [index.n_tiles, index.n_tiles, 2 * index.n_tiles]
+    for k in algo.SIMILARITY_TYPES:
+        np.testing.assert_array_equal(got[k], D[k][nc:, :nc], err_msg=k)
+
+
+def test_process_shards_merge_on_the_card(dev, tmp_path):
+    """Three shards on the card merge to the unsharded card sweep bit for
+    bit."""
+    from acoss_tpu_torch.benchmarking.harness import run_pairwise
+    from acoss_tpu_torch.parallel import merge_partials, run_process_shard
+
+    fs = _serving_corpus()
+    algo = Serra09()
+    desc = algo.extract_descriptors(fs, device=dev)
+    want = run_pairwise(algo, desc, fs.n_songs, tile=4, device=dev)
+    paths = [run_process_shard(algo, desc, fs.n_songs, p, 3, str(tmp_path),
+                               tile=4, device=dev) for p in range(3)]
+    merged = merge_partials(paths)
+    for k in want:
+        np.testing.assert_array_equal(merged[k], want[k], err_msg=k)
+
+
+def test_shape_dna_knn_mask_equals_plain_on_the_card(dev):
+    """Shape DNA launches the kNN row mask once a song, on its (2, npad,
+    npad) stack; the mask equals the plain version's, so the eigenvalues
+    equal the plain path's."""
+    from acoss_tpu_torch.analytics import get_shape_dna
+
+    fs = _serving_corpus()
+    h = fs.feature("hpcp")[0, :fs.length("hpcp")[0]]
+    m = fs.feature("mfcc_htk")[0, :fs.length("mfcc_htk")[0]]
+    calls = []
+    real = crp_cuda.knn_mask_matrix_batch
+
+    def spy(W, k, largest=False):
+        out = real(W, k, largest=largest)
+        calls.append((W.clone(), k.clone(), largest, out))
+        return out
+
+    # the wrapper counts its launches through its module-level name
+    spy.launches = 0
+    crp_cuda.knn_mask_matrix_batch = spy
+    try:
+        got = get_shape_dna(h, m, device=dev)
+    finally:
+        crp_cuda.knn_mask_matrix_batch = real
+    assert len(calls) == 1
+    W, k, largest, out = calls[0]
+    assert W.shape[0] == 2 and W.shape[1] == W.shape[2]
+    ref = crp_cuda.knn_mask_matrix_ref(W, k, largest=largest)
+    assert torch.equal(out, ref)
+    crp_cuda.knn_mask_matrix_batch = crp_cuda.knn_mask_matrix_ref
+    try:
+        plain = get_shape_dna(h, m, device=dev)
+    finally:
+        crp_cuda.knn_mask_matrix_batch = real
+    np.testing.assert_array_equal(got["w"], plain["w"])

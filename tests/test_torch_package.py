@@ -2,6 +2,7 @@
 JAX package, and its kernel build fails loudly without nvcc."""
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -64,8 +65,48 @@ def test_port_imports_no_jax():
               "acoss_tpu_torch.data.manifest",
               "acoss_tpu_torch.ops.hmm_cuda",
               "acoss_tpu_torch.ops.similarity_legacy",
-              "acoss_tpu_torch.native"):
+              "acoss_tpu_torch.native",
+              "acoss_tpu_torch.serving", "acoss_tpu_torch.config",
+              "acoss_tpu_torch.parallel.distributed",
+              "acoss_tpu_torch.analytics.coverstats",
+              "acoss_tpu_torch.analytics.onset_timing",
+              "acoss_tpu_torch.analytics.song_structure",
+              "acoss_tpu_torch.analytics.studies",
+              "acoss_tpu_torch.data.h5io",
+              "acoss_tpu_torch.utils.logging",
+              "acoss_tpu_torch.utils.profiling"):
         assert m in out["modules"]
+
+
+def test_card_installs_are_enough(tmp_path):
+    """The card's machine has numpy, scipy and torch but no pandas,
+    matplotlib, h5py or jax: with those made unimportable, the serving,
+    parallel, analytics, utils and CLI modules import, and `coverstats
+    --no-figures` runs every default study on the CPU."""
+    code = (
+        "import sys\n"
+        "for m in ('pandas', 'matplotlib', 'h5py', 'jax', 'jaxlib'):\n"
+        "    sys.modules[m] = None\n"
+        "from acoss_tpu_torch import analytics, cli, parallel, serving, utils\n"
+        "from acoss_tpu_torch.data import make_synthetic_dataset\n"
+        "fs = make_synthetic_dataset(n_cliques=3, clique_size=2, seed=1)\n"
+        f"fs.save({str(tmp_path / 'fs.npz')!r})\n"
+        "rc = cli.main(['coverstats', '-d', "
+        f"{str(tmp_path / 'fs.npz')!r}, '-o', {str(tmp_path / 'out')!r}, "
+        "'--no-figures', '--device', 'cpu'])\n"
+        "bad = sorted(m for m in ('pandas', 'matplotlib', 'h5py', 'jax')\n"
+        "             if sys.modules.get(m) is not None)\n"
+        "print('RESULT', rc, bad)\n")
+    # one intra-op thread: more only spin in a loaded parallel test run
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "RESULT 0 []"
+    summary = json.loads((tmp_path / "out" / "summary.json").read_text())
+    assert set(summary["studies"]) == {"key", "tempo", "onset", "stdev",
+                                       "shapedna"}
+    assert not list((tmp_path / "out").glob("*.svg"))
 
 
 def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
