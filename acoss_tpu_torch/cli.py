@@ -11,7 +11,7 @@ txt) into one FeatureSet; a song's clique label is its parent directory.
 into `<output>`, bit-identical to the serial extraction.
 
 `python -m acoss_tpu_torch benchmark -a ALGORITHM -d <features.npz>
- -s NAME [-c hpcp] [-t TILE] [--n_buckets N] [--cachedir DIR]
+ -s NAME [-c hpcp] [-t TILE] [--n_buckets N] [--mesh RxC] [--cachedir DIR]
  [--no-checkpoint] [--snf-precision {highest,default}]
  [--stream-dir DIR [--stream-chunk N] [--stream-half | --stream-int8]
  [--hybrid-panel P [--no-panel-prefetch]]] [--device cuda]`
@@ -31,7 +31,11 @@ streamed from that store. `--num-processes N --process-id I
 [--partial-dir DIR]` sweeps one process's share of the tile grid (whole
 panels with `--hybrid-panel`) into a partial-score file (the reference's
 `-r` array-job mode); `--merge` scatter-adds the partials and evaluates
-(the reference's `-b`). `--stage-times` prints per-stage wall seconds and
+(the reference's `-b`). `--mesh RxC` shards the pair grid over an R x C
+grid of devices (`parallel.mesh`: the triangular fold for a symmetric
+algorithm, the rectangular sweep otherwise); with `--device cuda` it
+takes R * C visible cards, and a device that names one device (`cpu`,
+`cuda:0`) fills every slot. `--stage-times` prints per-stage wall seconds and
 `--profile LOGDIR` writes a `torch.profiler` trace. `-d` is a FeatureSet
 .npz or a directory of the reference's per-track .h5 files, for every
 command.
@@ -266,6 +270,39 @@ def _shard_store(args, algo, fs):
     return desc
 
 
+def _cmd_mesh(args, algo, fs, csv: str) -> int:
+    """--mesh RxC: the devices of an R x C grid score blocks of the pair
+    grid; a symmetric algorithm takes the triangular fold over the
+    flattened grid, a non-symmetric one the rectangular sweep with the
+    diagonal zeroed."""
+    import numpy as np
+
+    from acoss_tpu_torch.parallel.mesh import (make_pair_mesh, mesh_devices,
+                                               sharded_pair_scores,
+                                               sharded_pair_scores_triangular)
+
+    if algo.full_scores is not None:
+        print(f"algorithm {args.algorithm} computes scores in one shot "
+              f"(full_scores) and does not support --mesh", file=sys.stderr)
+        return 1
+    r, c = args.mesh
+    mesh = make_pair_mesh(mesh_devices(args.device, r * c), (r, c))
+    home = mesh[0, 0]
+    desc = algo.extract_descriptors(fs, device=home)
+    col_tile = args.tile or algo.TILE
+    if algo.SYMMETRIC:
+        Ds = sharded_pair_scores_triangular(
+            algo.tile_scores, desc, fs.n_songs, devices=mesh.ravel(),
+            col_tile=col_tile)
+    else:
+        Ds = sharded_pair_scores(algo.tile_scores, desc, fs.n_songs, mesh,
+                                 col_tile=col_tile)
+        for D in Ds.values():
+            np.fill_diagonal(D, 0.0)
+    _eval_and_report(algo, Ds, desc, fs.labels, csv, home)
+    return 0
+
+
 def _cmd_shard(args, algo, fs) -> int:
     """One shard of a multi-process sweep (the reference's `-r`): write a
     partial file; a later --merge run aggregates and evaluates."""
@@ -340,6 +377,8 @@ def _cmd_benchmark_inner(args) -> int:
         return _cmd_merge(args, algo, fs, csv)
     if args.num_processes > 1:
         return _cmd_shard(args, algo, fs)
+    if args.mesh:
+        return _cmd_mesh(args, algo, fs, csv)
     ckpt = None if args.no_checkpoint else os.path.join(
         args.cachedir, f"{algo.NAME}_{args.shortname}_ckpt.npz")
     if args.stream_dir:
@@ -500,6 +539,18 @@ def cmd_coverstats(args) -> int:
     return 0
 
 
+def _mesh_shape(text: str) -> tuple[int, int]:
+    """--mesh "RxC" -> (R, C), both positive."""
+    try:
+        r, c = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        r = c = 0
+    if r < 1 or c < 1:
+        raise argparse.ArgumentTypeError(f"expected RxC with R, C >= 1, "
+                                         f"got {text!r}")
+    return r, c
+
+
 def _device_arg(p, what: str) -> None:
     p.add_argument("--device", default="cuda",
                    help=f"torch device of {what} (default cuda; cpu runs "
@@ -569,6 +620,10 @@ def main(argv=None) -> int:
     b.add_argument("--merge", action="store_true",
                    help="aggregate partial files from --partial-dir and "
                         "evaluate (the reference's -b/load_batches)")
+    b.add_argument("--mesh", type=_mesh_shape, default=None, metavar="RxC",
+                   help="shard the pair grid over an RxC grid of devices "
+                        "(R * C cards with --device cuda; a named device "
+                        "such as cpu or cuda:0 fills every slot)")
     b.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="capture a torch.profiler trace of the run (CPU "
                         "and CUDA activity) into LOGDIR/trace.json")

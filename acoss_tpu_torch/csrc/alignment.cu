@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -737,7 +739,8 @@ sw_kernel(const uint8_t* __restrict__ S, const int* __restrict__ m_len,
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int rows, int B, int N, int device,
            cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaSetDevice(device);
+  acoss::DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = (size_t)rows * N * sizeof(float);
   if (smem > 48 * 1024) {
@@ -768,7 +771,8 @@ int register_threads(int N, int cols) {
 template <typename Kernel, typename... Args>
 int launch_registers(Kernel kernel, int cols, int B, int N, int device,
                      void* stream, Args... args) {
-  cudaError_t err = cudaSetDevice(device);
+  acoss::DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
   if (N > kRegisterMaxN) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();

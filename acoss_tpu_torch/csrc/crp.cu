@@ -49,6 +49,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "select.cuh"
 
 namespace {
@@ -332,7 +333,8 @@ int acoss_fused_crp(const float* X, const float* Y, const int* l1,
                     float* W, unsigned* t_row, uint8_t* S, int device,
                     void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  cudaError_t err = cudaSetDevice(device);
+  acoss::DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
   if (acoss_fused_crp_smem(L, d, m) == 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();

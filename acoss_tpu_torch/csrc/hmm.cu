@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int kMaxStates = 32;
@@ -166,7 +168,8 @@ extern "C" {
 // E (T, C) and A (C, C) fp32 row-major on `device`; gamma (T, C) fp32 out.
 int acoss_hmm_fb(const float* E, const float* A, int T, int C, float* gamma,
                  int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  acoss::DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
   if (C < 1 || C > kMaxStates || T < 0) return (int)cudaErrorInvalidValue;
   if (T == 0) return (int)cudaGetLastError();

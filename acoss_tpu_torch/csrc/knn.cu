@@ -57,6 +57,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "select.cuh"
 
 namespace {
@@ -650,7 +651,8 @@ int acoss_binarize(const float* D, const int* l1, const int* l2, int B,
                    int L, float kappa, int* thr, uint8_t* S, int device,
                    void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  cudaError_t err = cudaSetDevice(device);
+  acoss::DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || L == 0) return (int)cudaGetLastError();
   // keys per lane: the first that covers a line of L (16 up to L = 512)
@@ -677,7 +679,8 @@ int acoss_binarize(const float* D, const int* l1, const int* l2, int B,
 int acoss_knn_mask(const float* W, const int* k, int B, int n, int largest,
                    float* V, int device, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  cudaError_t err = cudaSetDevice(device);
+  acoss::DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || n == 0) return (int)cudaGetLastError();
   const int kpl = (n + 31) / 32;
@@ -703,7 +706,8 @@ int acoss_wcsmssm(const float* SA, const float* SB, const float* C,
                   float Mu, float* stats, float* W, int device,
                   void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  cudaError_t err = cudaSetDevice(device);
+  acoss::DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
   if (L > 32 * kMaxKeysPerLane) return (int)cudaErrorInvalidValue;
   if (B == 0 || L == 0) return (int)cudaGetLastError();

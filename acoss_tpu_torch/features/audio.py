@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import shutil
 import subprocess
+import tempfile
 import wave
 
 import numpy as np
@@ -90,3 +91,25 @@ def save_wav(path: str, y: np.ndarray, sr: int = 44100) -> None:
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(data)
+
+
+def export_onset_clicks(y: np.ndarray, outname: str, onsets: np.ndarray,
+                        sr: int = 44100, hop_length: int = 512) -> None:
+    """Auditory beat-tracker spot check: overwrite 20 ms 440 Hz blips at
+    each onset and write the result (`features.py:505-529`; WAV output is
+    written directly, other formats go through ffmpeg when available)."""
+    yaudio = np.array(y, dtype=np.float32)
+    blipsamples = int(round(0.02 * sr))
+    blip = np.cos(2 * np.pi * np.arange(blipsamples) * 440.0 / sr)
+    blip = (blip * np.max(np.abs(yaudio))).astype(np.float32)
+    for idx in np.asarray(onsets).ravel():
+        i0 = int(idx) * hop_length
+        seg = yaudio[i0:i0 + blipsamples]
+        yaudio[i0:i0 + len(seg)] = blip[:len(seg)]
+    if outname.lower().endswith(".wav") or not have_ffmpeg():
+        save_wav(outname, yaudio, sr)
+        return
+    with tempfile.NamedTemporaryFile(suffix=".wav") as tmp:
+        save_wav(tmp.name, yaudio, sr)
+        subprocess.run(["ffmpeg", "-y", "-v", "quiet", "-i", tmp.name,
+                        outname], check=True)

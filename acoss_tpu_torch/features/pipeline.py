@@ -44,6 +44,12 @@ PROFILE = {
 }
 
 
+def two_d_fft_mag(feature: np.ndarray) -> np.ndarray:
+    """fft2 -> abs -> fftshift of a feature matrix
+    (`features.py:298-328`)."""
+    return np.fft.fftshift(np.abs(np.fft.fft2(feature)))
+
+
 def compute_features(audio, sr: int = 44100, hop_length: int = 512,
                      features: list | None = None,
                      device: str | torch.device = "cuda") -> dict:

@@ -93,6 +93,13 @@ def get_csm_centered(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     return get_csm(X - c, Y - c)
 
 
+def get_ssm_centered(X: torch.Tensor) -> torch.Tensor:
+    """`get_ssm` after subtracting X's first row (the shared origin of
+    `get_csm_centered`): exact in infinite precision, far better fp32
+    conditioning for large-norm descriptors."""
+    return get_ssm(X - X[..., :1, :])
+
+
 def get_csm_cosine(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """Cosine-distance cross-similarity matrix between rows of X (..., M,
     d) and Y (..., N, d): 1 - cos, with a zero-norm row treated as norm
@@ -165,6 +172,20 @@ def sliding_window_padded(X: torch.Tensor, win: int) -> torch.Tensor:
     Xp = torch.cat([X, X.new_zeros(X.shape[:-2] + (win - 1, X.shape[-1]))],
                    dim=-2)
     return torch.cat([Xp[..., i:i + N, :] for i in range(win)], dim=-1)
+
+
+def sliding_csm(D: torch.Tensor, win: int) -> torch.Tensor:
+    """Diagonal windowed RMS, S[i, j] = sqrt(sum_k D[i+k, j+k]^2), k <
+    win, of the valid cells only: (..., M, N) -> (..., M - win + 1,
+    N - win + 1) (`CRPUtils.py:24-45`)."""
+    M, N = D.shape[-2:]
+    Mo, No = M - win + 1, N - win + 1
+    D2 = D * D
+    acc = torch.zeros(D.shape[:-2] + (Mo, No), dtype=D.dtype,
+                      device=D.device)
+    for k in range(win):
+        acc = acc + D2[..., k:k + Mo, k:k + No]
+    return torch.sqrt(acc)
 
 
 def sliding_csm_padded(D: torch.Tensor, win: int) -> torch.Tensor:

@@ -4,8 +4,11 @@
 The reference distributes across nodes with SGE array jobs + HDF5 batch
 files merged by scatter-add (`CoverAlgorithm.py:249-317`,
 `runcovers80.sh`). The port keeps that elastic, file-mediated structure at
-the PROCESS level; each process drives its own device:
+the PROCESS level; each process drives its own device (within a process
+the device-mesh sweeps of `parallel.mesh` apply):
 
+0. `initialize()` wires `torch.distributed` from its arguments or the
+   environment, for callers that want a process group;
 1. block-rows of the tile grid are assigned to processes with a balanced
    greedy schedule (`assign_block_rows`: lower-triangular rows have
    unequal cost);
@@ -33,6 +36,30 @@ from acoss_tpu_torch.benchmarking.harness import (CoverAlgorithm,
                                                   _symmetrize_from_lower,
                                                   run_pairwise,
                                                   run_pairwise_hybrid)
+
+
+def initialize(coordinator_address: str | None = None,
+               num_processes: int | None = None,
+               process_id: int | None = None,
+               device: str | torch.device = "cuda") -> None:
+    """`torch.distributed.init_process_group` pass-through: the NCCL
+    backend for a CUDA `device`, gloo for the CPU. With
+    `coordinator_address` ("host:port") the rendezvous is
+    `tcp://<address>`; without it, the MASTER_ADDR / MASTER_PORT /
+    WORLD_SIZE / RANK environment variables (`env://`). A None
+    `num_processes` or `process_id` is read from the environment. No-op
+    when num_processes == 1."""
+    if num_processes == 1:
+        return
+    import torch.distributed as dist
+
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    init = (f"tcp://{coordinator_address}" if coordinator_address
+            else "env://")
+    dist.init_process_group(
+        backend, init_method=init,
+        world_size=-1 if num_processes is None else num_processes,
+        rank=-1 if process_id is None else process_id)
 
 
 def _stem(algorithm, process_id: int, num_processes: int) -> str:

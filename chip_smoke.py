@@ -59,6 +59,15 @@ songs, 210 tiles, 12,720 pairs):
 - `coverstats`: the CLI's five default studies and `tag`, no figures; one
   kNN-mask launch a song in the shape-DNA study, its first three == plain
   bit for bit, 8 songs' eigenvalues within 1e-4 of the plain path's;
+- `mesh`: the device-mesh sweeps over four slots of card 0 (one card
+  cannot show blocks on distinct cards): `sharded_pair_scores` on a 2 x 2
+  grid (strict lower triangle == the main path's matrices bit for bit)
+  and `sharded_pair_scores_triangular` over 4 slots (whole matrix == the
+  main path's), each launching the fused CRP, qmax and dmax as often as
+  its tile calls imply; `benchmark --mesh 2x2 --device cuda:0` for
+  Serra09 (the fold; MAP rows == the main path's) and Simple (the
+  rectangular branch; matrix == the simple phase's); then
+  `dryrun_multichip(4, device="cuda:0")`; pairs/s beside the main path's;
 
 then Serra09 at Da-TACOS song geometry through the sweep engines
 (`datacos_geometry`: 600 songs of a `LazySyntheticCorpus`, 40 cliques x
@@ -659,7 +668,7 @@ def phase_main_path(dev, fs, desc: dict) -> dict:
     n = _first_block_row(algo, desc, Ds, fs.n_songs)
     _phase("main_path", f"first block-row ({n} tiles) recomputed by the "
            f"plain versions on {dev}: identical scores")
-    return counts, Ds
+    return counts, Ds, pairs / times["sweep"]
 
 
 def phase_early_snf(dev, fs) -> tuple[dict, dict]:
@@ -1398,7 +1407,7 @@ def phase_simple(dev, fs) -> dict:
     _stage_lines("simple", "Simple", dev, fs, stats, times, counts,
                  f", {Counted.tiles} tiles (the full {n_tiles} x {n_tiles} "
                  f"grid, asymmetric)")
-    return counts
+    return counts, D
 
 
 def _tile_split(algo, row: dict, col: dict, reps: int = 7) -> str:
@@ -2336,6 +2345,153 @@ def _clocked(targets: list, seconds: dict):
             setattr(m, a, fn)
 
 
+def _mesh_calls(n: int, col_tile: int, shape=None, fold: int = 0) -> int:
+    """The `tile_scores` calls the mesh decomposition implies for n songs:
+    an (r, c) `shape` pads n to a multiple of lcm(r, c * col_tile) and
+    gives each of its r * c blocks its column tiles; a fold over `fold`
+    slots cuts 2 * fold chunks of a whole number of column tiles (at least
+    one) and gives each slot 2 * fold + 1 chunk x chunk blocks. A block's
+    rows go in sub-blocks of MAX_PAIRS_PER_CALL // col_tile songs."""
+    import math
+
+    from acoss_tpu_torch.parallel.mesh import MAX_PAIRS_PER_CALL
+
+    sub = max(1, MAX_PAIRS_PER_CALL // col_tile)
+    if fold:
+        chunk = max(-(-n // (2 * fold)), col_tile)
+        chunk = -(-chunk // col_tile) * col_tile
+        return (fold * (2 * fold + 1) * -(-chunk // sub)
+                * (chunk // col_tile))
+    r, c = shape
+    q = math.lcm(r, c * col_tile)
+    n_pad = -(-n // q) * q
+    return r * c * -(-(n_pad // r) // sub) * (n_pad // c // col_tile)
+
+
+def phase_mesh(dev, fs, desc: dict, main_Ds: dict, main_rate: float,
+               simple_D, smi: str) -> dict:
+    """The device-mesh sweeps (`parallel.mesh`) at covers80 geometry over
+    four slots of one card: `sharded_pair_scores` on a 2 x 2 grid (its
+    strict lower triangle == the main path's matrices bit for bit) and
+    `sharded_pair_scores_triangular` over 4 slots (its whole matrix == the
+    main path's mirrored matrices bit for bit); the CLI's `--mesh 2x2
+    --device cuda:0` for Serra09 (the fold; MAP rows == the main path's)
+    and for Simple (the rectangular branch; its matrix == the simple
+    phase's off the diagonal); every path's fused-CRP / qmax / dmax
+    launches == the tile calls the decomposition implies times the
+    launches a call; then `dryrun_multichip(4, device="cuda:0")`. Prints
+    each sweep's fully-scored pairs/s beside the main path's."""
+    import io
+
+    from acoss_tpu_torch import cli
+    from acoss_tpu_torch.benchmarking.algorithms import Serra09
+    from acoss_tpu_torch.entry import dryrun_multichip
+    from acoss_tpu_torch.parallel import (make_pair_mesh, sharded_pair_scores,
+                                          sharded_pair_scores_triangular)
+
+    name = "mesh"
+    n, T = fs.n_songs, Serra09.TILE
+    card = torch.device(dev.type, 0)
+    slots = [card] * 4
+    algo = Serra09()
+    pairs = n * (n - 1) // 2
+    tril = np.tril_indices(n, -1)
+    full = {}
+    for k, D in main_Ds.items():
+        low = np.tril(D, -1)
+        full[k] = low + low.T
+    n_calls = {"rect": _mesh_calls(n, T, shape=(2, 2)),
+               "fold": _mesh_calls(n, T, fold=4)}
+    sweeps = {"rect": lambda fn: sharded_pair_scores(
+                  fn, desc, n, make_pair_mesh(slots, (2, 2)), col_tile=T),
+              "fold": lambda fn: sharded_pair_scores_triangular(
+                  fn, desc, n, devices=slots, col_tile=T)}
+    counts, seconds, computed = {}, {}, {}
+    for what, sweep in sweeps.items():
+        calls = []
+
+        def counted(row, col):
+            calls.append(row["length"].shape[0] * col["length"].shape[0])
+            return algo.tile_scores(row, col)
+
+        t0 = time.perf_counter()
+        Ds, counts[what] = _counted(f"{name} {what}", lambda: sweep(counted),
+                                    _serra_launches(n_calls[what]))
+        seconds[what] = time.perf_counter() - t0
+        computed[what] = sum(calls)
+        if len(calls) != n_calls[what]:
+            raise AssertionError(f"{name} {what}: {len(calls)} tile calls, "
+                                 f"the decomposition implies "
+                                 f"{n_calls[what]}")
+        for k in algo.SIMILARITY_TYPES:
+            got, want = (Ds[k][tril], main_Ds[k][tril]) if what == "rect" \
+                else (Ds[k], full[k])
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{name} {what} {k} != the main path's "
+                                     f"matrix")
+    if torch.cuda.current_device() != card.index:
+        raise AssertionError(f"{name}: the sweeps left the current device "
+                             f"at {torch.cuda.current_device()}")
+
+    seen = {}
+    real = cli._eval_and_report
+
+    def keep(algo, Ds, *args, **kwargs):
+        seen.update(Ds)
+        return real(algo, Ds, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        fs.save(f"{tmp}/fs.npz")
+        common = ["benchmark", "-d", f"{tmp}/fs.npz", "-s", "mesh",
+                  "--mesh", "2x2", "--device", str(card)]
+        t0 = time.perf_counter()
+        (rc, out), counts["cli"] = _counted(
+            f"{name} CLI", lambda: _cli(common + ["-a", "Serra09"]),
+            _serra_launches(n_calls["fold"]))
+        t_cli = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"{name}: the CLI returned {rc}")
+        _check_cli_maps(f"{name} CLI", out, full, fs.labels)
+        cli._eval_and_report = keep
+        try:
+            (rc, _), _ = _counted(f"{name} CLI Simple",
+                                  lambda: _cli(common + ["-a", "Simple"]),
+                                  {})
+        finally:
+            cli._eval_and_report = real
+    off = ~np.eye(n, dtype=bool)
+    if rc or not np.array_equal(seen["main"][off], simple_D[off]) \
+            or seen["main"].diagonal().any():
+        raise AssertionError(f"{name}: the CLI's rectangular Simple sweep "
+                             f"(rc {rc}) != the simple phase's matrix")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4, device=str(card))
+    t_dry = time.perf_counter() - t0
+    line = buf.getvalue().strip()
+    if not line.startswith("dryrun_multichip OK"):
+        raise AssertionError(f"{name}: dryrun_multichip printed {line!r}")
+
+    _phase(name, f"2x2 grid of {card}: {n_calls['rect']} tile calls, "
+           f"{computed['rect']} pairs scored, strict lower triangle == the "
+           f"main path's bit for bit; fold over 4 x {card}: "
+           f"{n_calls['fold']} calls, {computed['fold']} pairs, whole matrix "
+           f"== the main path's bit for bit; launches " + "; ".join(
+               f"{w} " + ", ".join(f"{k} {v}" for k, v in c.items())
+               for w, c in counts.items()))
+    _phase(name, f"CLI --mesh 2x2 --device {card}: Serra09 (fold) MAP rows "
+           f"== the main path's ({t_cli:.2f} s with extraction), Simple "
+           f"(rectangular) matrix == the simple phase's")
+    _phase(name, f"{line} ({t_dry:.2f} s)")
+    _phase(name, f"{smi}: fully-scored pairs/s ({pairs} pairs): main path "
+           f"{main_rate:.1f}, 2x2 rect {pairs / seconds['rect']:.1f} "
+           f"({seconds['rect']:.3f} s), fold over 4 "
+           f"{pairs / seconds['fold']:.1f} ({seconds['fold']:.3f} s)")
+    return {f"mesh_{w}": c for w, c in counts.items()}
+
+
 def phase_coverstats(dev, fs) -> dict:
     """`python -m acoss_tpu_torch coverstats` over the 160-song corpus: the
     five default studies and `tag` (tags the smoke writes), no figures.
@@ -2445,13 +2601,12 @@ def main() -> int:
     desc = _descriptors(dev, fs)
     kernels["fused_crp"] = phase_fused_crp(desc)
     launches = {}
-    launches["main_path"], main_Ds = phase_main_path(dev, fs, desc)
+    launches["main_path"], main_Ds, main_rate = phase_main_path(dev, fs,
+                                                                desc)
     phase_serving_fp32(dev, fs, main_Ds)
-    del main_Ds
     # qmax_uneq's entry is timed at its path's shapes, one CRP a launch
     # (phase_aligners printed its time on the bench batch)
     launches["legacy"], kernels["qmax_uneq"] = phase_legacy(dev, desc)
-    del desc
     snf_desc, launches["early_snf"] = phase_early_snf(dev, fs)
     for phase in (phase_binarize, phase_knn_mask, phase_wcsmssm):
         k = phase(snf_desc)
@@ -2462,11 +2617,17 @@ def main() -> int:
     ef_desc, launches["early_fusion"] = phase_early_fusion(dev, fs)
     kernels["sw"] = phase_sw(ef_desc)
     del ef_desc
-    for name, phase in (("ftm2d", phase_ftm2d), ("simple", phase_simple),
+    for name, phase in (("ftm2d", phase_ftm2d),
                         ("chen_fusion", phase_chen_fusion),
                         ("tgalg", phase_tgalg),
                         ("anf_scattering", phase_anf)):
         launches[name] = phase(dev, fs)
+    launches["simple"], simple_D = phase_simple(dev, fs)
+    t0 = time.perf_counter()
+    launches.update(phase_mesh(dev, fs, desc, main_Ds, main_rate, simple_D,
+                               smi))
+    _phase("mesh", f"phase {time.perf_counter() - t0:.1f} s")
+    del desc, main_Ds, simple_D
     for phase in (phase_struc_ftm2d, phase_struc_scattering,
                   phase_struc_laplacian):
         t0 = time.perf_counter()

@@ -165,6 +165,26 @@ def test_csm_and_window_match_jax():
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
+@pytest.mark.parametrize("offset", [0.0, 50.0])
+def test_ssm_centered_and_sliding_csm_match_jax(offset):
+    """`get_ssm_centered` (large-norm rows: the centring case) and the
+    valid-cells `sliding_csm` within 1e-5 of the JAX package's; the port's
+    also take a batch of matrices."""
+    rng = np.random.default_rng(8)
+    X = (rng.standard_normal((2, 30, 13)) + offset).astype(np.float32)
+    got = crp.get_ssm_centered(torch.from_numpy(X)).numpy()
+    for b in range(2):
+        want = np.asarray(jax_crp.get_ssm_centered(jnp.asarray(X[b])))
+        np.testing.assert_allclose(got[b], want, rtol=0, atol=1e-5)
+    D = np.abs(rng.standard_normal((2, 25, 18))).astype(np.float32)
+    for win in (1, 9):
+        got = crp.sliding_csm(torch.from_numpy(D), win).numpy()
+        assert got.shape == (2, 26 - win, 19 - win)
+        for b in range(2):
+            want = np.asarray(jax_crp.sliding_csm(jnp.asarray(D[b]), win))
+            np.testing.assert_allclose(got[b], want, rtol=0, atol=1e-5)
+
+
 def test_oti_and_transpose_chroma_match_jax():
     rng = np.random.default_rng(6)
     C1 = rng.random((6, 12)).astype(np.float32)

@@ -943,3 +943,101 @@ def test_shape_dna_knn_mask_equals_plain_on_the_card(dev):
     finally:
         crp_cuda.knn_mask_matrix_batch = real
     np.testing.assert_array_equal(got["w"], plain["w"])
+
+
+def test_kernel_wrappers_keep_the_callers_device(dev):
+    """Every kernel wrapper launches on its tensors' device (card 0) and
+    leaves the caller's current device as it was: the C entry points
+    restore it. With two or more cards the caller's current device is the
+    last card, another than the tensors'."""
+    from acoss_tpu_torch.ops import hmm_cuda
+
+    card = torch.device("cuda", 0)
+    here = torch.cuda.device_count() - 1
+    B, L = 8, 64
+    S, m, n = (torch.from_numpy(a).to(card) for a in _crps(0, B=B, L=L))
+    g = torch.Generator().manual_seed(0)
+    X, Y = (torch.rand(B, L, 12, generator=g).to(card) for _ in range(2))
+    M = torch.rand(B, L, L, generator=g).to(card)
+    lens = torch.full((B,), L, dtype=torch.int32, device=card)
+    calls = {
+        "qmax": lambda: alignment_cuda.qmax_batch_cuda(S, m, n),
+        "dmax": lambda: alignment_cuda.dmax_batch_cuda(S, m, n),
+        "qmax_uneq": lambda: alignment_cuda.qmax_uneq_batch_cuda(
+            S, m, n, 0.3, 0.8),
+        "sw": lambda: alignment_cuda.swconstrained_batch_cuda(S, m, n),
+        "fused_crp": lambda: crp_cuda.fused_binary_crp_batch(X, Y, lens,
+                                                             lens),
+        "binarize": lambda: crp_cuda.binarize_matrix_batch(M, lens, lens),
+        "knn_mask": lambda: crp_cuda.knn_mask_matrix_batch(M, lens // 8),
+        "wcsmssm": lambda: crp_cuda.wcsmssm_batch(M, M, M, lens, lens,
+                                                  lens // 8),
+        "hmm_fb": lambda: hmm_cuda.chord_forward_backward(
+            torch.rand(L, 25, generator=g).to(card),
+            torch.rand(25, 25, generator=g).to(card)),
+    }
+    with torch.cuda.device(here):
+        for name, call in calls.items():
+            call()
+            assert torch.cuda.current_device() == here, name
+    torch.cuda.synchronize(card)
+
+
+def _mesh_corpus(dev):
+    fs = _serving_corpus()
+    algo = Serra09()
+    desc = {k: np.asarray(v) for k, v in
+            algo.extract_descriptors(fs, device=dev).items()}
+    return fs.n_songs, algo, desc
+
+
+def test_mesh_over_one_card_equals_run_pairwise(dev):
+    """A 2x2 mesh and a fold over 4 slots of card 0 equal the card's
+    run_pairwise bit for bit (the rectangular sweep on the strict lower
+    triangle, the fold whole), and leave the current device as it was."""
+    from acoss_tpu_torch.benchmarking.harness import run_pairwise
+    from acoss_tpu_torch.parallel import (make_pair_mesh, sharded_pair_scores,
+                                          sharded_pair_scores_triangular)
+
+    n, algo, desc = _mesh_corpus(dev)
+    want = run_pairwise(algo, desc, n, device=dev)
+    slots = [torch.device("cuda", 0)] * 4
+    here = torch.cuda.current_device()
+    rect = sharded_pair_scores(algo.tile_scores, desc, n,
+                               make_pair_mesh(slots, (2, 2)))
+    fold = sharded_pair_scores_triangular(algo.tile_scores, desc, n,
+                                          devices=slots)
+    assert torch.cuda.current_device() == here
+    tril = np.tril_indices(n, -1)
+    for k in want:
+        np.testing.assert_array_equal(rect[k][tril], want[k][tril], err_msg=k)
+        np.testing.assert_array_equal(fold[k], want[k], err_msg=k)
+
+
+def test_mesh_sub_blocks_on_the_card_equal_cpu(dev, monkeypatch):
+    """A device block whose rows exceed MAX_PAIRS_PER_CALL // col_tile is
+    split on the card (no call scores more than the constant), and the
+    matrices equal the unsplit CPU sweep of the kernel path's plain
+    composition (`tile_scores(plain=True)`) bit for bit."""
+    import functools
+
+    from acoss_tpu_torch.parallel import make_pair_mesh, mesh
+
+    n, algo, desc = _mesh_corpus(dev)
+    calls = []
+
+    def counted(row, col):
+        calls.append(row["length"].shape[0] * col["length"].shape[0])
+        return algo.tile_scores(row, col)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(mesh, "MAX_PAIRS_PER_CALL", 16)
+        got = mesh.sharded_pair_scores(
+            counted, desc, n, make_pair_mesh([torch.device("cuda", 0)] * 2,
+                                             (1, 2)))
+    assert max(calls) <= 16 and len(calls) > 2
+    want = mesh.sharded_pair_scores(
+        functools.partial(algo.tile_scores, plain=True), desc, n,
+        make_pair_mesh([torch.device("cpu")] * 2, (1, 2)))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

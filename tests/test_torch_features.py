@@ -368,6 +368,29 @@ def test_audio_copies_bit_equal(signals, tmp_path):
                                   jax_audio.audio_slicer(y, SR, 1.5, 0.25))
 
 
+def test_two_d_fft_mag_equal():
+    from acoss_tpu.features.pipeline import two_d_fft_mag as jax_fft_mag
+    from acoss_tpu_torch.features.pipeline import two_d_fft_mag
+
+    X = np.random.default_rng(2).random((12, 40))
+    np.testing.assert_array_equal(two_d_fft_mag(X), jax_fft_mag(X))
+
+
+def test_export_onset_clicks_writes_jax_bytes(signals, tmp_path):
+    """The same WAV bytes as the JAX package's for the same onsets (a
+    blip past the end is cut short)."""
+    y = signals["clicks"]
+    onsets = np.array([10, 50, 100, y.size // 512 - 1])
+    a, b = tmp_path / "a.wav", tmp_path / "b.wav"
+    audio.export_onset_clicks(y, str(a), onsets)
+    jax_audio.export_onset_clicks(y, str(b), onsets)
+    assert a.read_bytes() == b.read_bytes()
+    got, sr = audio.load_wav(str(a))
+    assert sr == SR and got.size == y.size
+    assert not np.allclose(got[10 * 512:10 * 512 + 100],
+                           y[10 * 512:10 * 512 + 100], atol=1e-3)
+
+
 def test_fingerprint_copy_bit_equal(signals):
     y = np.concatenate([signals["chords"], signals["vibrato"],
                         signals["clicks"]])

@@ -68,6 +68,7 @@ def test_port_imports_no_jax():
               "acoss_tpu_torch.native",
               "acoss_tpu_torch.serving", "acoss_tpu_torch.config",
               "acoss_tpu_torch.parallel.distributed",
+              "acoss_tpu_torch.parallel.mesh", "acoss_tpu_torch.entry",
               "acoss_tpu_torch.analytics.coverstats",
               "acoss_tpu_torch.analytics.onset_timing",
               "acoss_tpu_torch.analytics.song_structure",
