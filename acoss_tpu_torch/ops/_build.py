@@ -126,8 +126,9 @@ SIGNATURES = {
     # SSMA, SSMB, CSM, l1, l2, K, B, L, Mu, stats, W, device, stream
     "acoss_wcsmssm": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
                       _I),
-    # E, A, T, C, gamma, device, stream
-    "acoss_hmm_fb": ([_P, _P, _I, _I, _P, _I, _P], _I),
+    # E, A, T, C, L, scratch, gamma, device, stream
+    "acoss_hmm_fb": ([_P, _P, _I, _I, _I, _P, _P, _I, _P], _I),
+    "acoss_hmm_fb_scratch": ([_I, _I, _I], ctypes.c_size_t),
     "acoss_error_string": ([_I], ctypes.c_char_p),
 }
 

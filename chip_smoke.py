@@ -86,8 +86,10 @@ and last the extraction layer from audio (`extract`: 16
 placeholder WAVs from `scripts/torch_covers80_placeholder.py` through
 `batch_extract` with the default profile, all 16 extracted with one
 launch a song of the chord HMM's forward-backward kernel, `hmm_fb`, held
-to its plain version on the path's emissions; seconds a stage a song,
-one 300 s song, peak memory; then `benchmark(Serra09)` on the extracted
+to its plain version and to the plain model of its chunked algorithm on
+the path's emissions, two calls bit-equal; seconds a stage a song, one
+300 s song, peak memory, and hmm_fb checked and timed again on that
+song's own emissions (about 25,800 frames); then `benchmark(Serra09)` on the extracted
 features, its chroma MAP against the JAX package's CPU record on the
 same WAVs less 0.02).
 
@@ -1839,21 +1841,68 @@ def _stage_text(seconds: dict, per: float) -> str:
                      for k in EXTRACT_STAGES)
 
 
+def _hmm_check(name: str, le, lt, reps: int) -> dict:
+    """hmm_fb on (T, C) emissions from the path: within atol 1e-5 of its
+    plain version (timed on the same call) and of the plain model of its
+    chunked algorithm, two calls bit-equal; its device ms over `reps`
+    calls and each launch's; its bound (the algorithm's bytes and
+    operations, not the chunk products' extra T C^3 multiply-adds)."""
+    from acoss_tpu_torch.ops import hmm_cuda
+
+    T, C = le.shape
+    L = hmm_cuda.chunk_length(T, hmm_cuda._sm_count(le.device))
+    got = hmm_cuda.chord_forward_backward(le, lt)
+    again = hmm_cuda.chord_forward_backward(le, lt)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = hmm_cuda.chord_forward_backward_ref(le, lt)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    model = hmm_cuda.chord_forward_backward_chunked_ref(le, lt, L)
+    err = float((got - want).abs().max())
+    err_model = float((got - model).abs().max())
+    if not (err <= 1e-5 and err_model <= 1e-5):
+        raise AssertionError(f"{name}: hmm_fb on ({T}, {C}) off its plain "
+                             f"version by {err}, off the chunked model by "
+                             f"{err_model}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: hmm_fb does not repeat bit for bit")
+    ms = _cuda_ms(lambda: hmm_cuda.chord_forward_backward(le, lt), reps)
+    # (late in a full run torch.profiler records no kernels: then none)
+    split = _kernel_split(lambda: hmm_cuda.chord_forward_backward(le, lt))
+    split = f" ({split})" if split else ""
+    # reads E and A once, writes gamma once; a step of either pass does
+    # C^2 adds, maxes, subtractions, exps and sums (the rest is O(C))
+    bound = _bound(4 * (2 * T * C + C * C), 2 * 5 * T * C * C)
+    kernel = _kernel("hmm_fb", "hmm.cu", "none: acoss_tpu/features/"
+                     "chord.py:72 (two lax.scans, no Pallas kernel)", err,
+                     ms, plain_ms, bound)
+    kernel.update(shape=[T, C], chunk=L)
+    _phase(name, f"hmm_fb on ({T}, {C}) emissions, chunks of {L}: max abs "
+           f"err {err:.3g} (plain), {err_model:.3g} (chunked model; atol "
+           f"1e-5), two calls bit-equal; kernel {ms:.4f} ms{split}, "
+           f"plain {plain_ms:.1f} ms, bound {bound[0]:.5f} ms ({bound[1]}; "
+           f"the chunk products' {T * C ** 3 / 1e9:.2f} G multiply-adds "
+           f"not counted)")
+    return kernel
+
+
 def phase_extract(dev) -> tuple[dict, dict]:
     """The extraction layer from audio: a 16-song placeholder WAV corpus
     (8 cliques, the port's copy of the placeholder recipe) through
     `batch_extract(device="cuda")` with the default profile (all 16 songs,
     an empty error log, one hmm_fb launch a song), seconds a stage a song
     and the peak device memory; hmm_fb against its plain version on the
-    path's own emissions (atol 1e-5); one 300 s song (the takes
-    concatenated) stage by stage; then `benchmark(Serra09)` on the
-    extracted FeatureSet (fused CRP, qmax, dmax) against the JAX package's
-    record on the same WAVs. Returns (hmm_fb's kernels entry, the
+    path's own emissions (`_hmm_check`); one 300 s song (the takes
+    concatenated) stage by stage, and `_hmm_check` on its emissions; then
+    `benchmark(Serra09)` on the extracted FeatureSet (fused CRP, qmax,
+    dmax) against the JAX package's record on the same WAVs. Returns (hmm_fb's kernels entry, the
     extraction's launch counts)."""
     from acoss_tpu_torch.benchmarking.algorithms import Serra09
     from acoss_tpu_torch.features import chord, pipeline
     from acoss_tpu_torch.features.audio import load_audio
-    from acoss_tpu_torch.ops import hmm_cuda
 
     name = "extract"
     script = _placeholder_script()
@@ -1888,32 +1937,15 @@ def phase_extract(dev) -> tuple[dict, dict]:
 
     # hmm_fb against its plain version on the first song's emissions
     (le, lt), _ = calls[0]
-    T, C = le.shape
-    got = hmm_cuda.chord_forward_backward(le, lt)
-    want = hmm_cuda.chord_forward_backward_ref(le, lt)
-    err = float((got - want).abs().max())
-    if not err <= 1e-5:
-        raise AssertionError(f"{name}: hmm_fb off its plain version by "
-                             f"{err}")
-    ms = _cuda_ms(lambda: hmm_cuda.chord_forward_backward(le, lt), 20)
-    plain_ms = _cuda_ms(lambda: hmm_cuda.chord_forward_backward_ref(le, lt),
-                        1)
-    # reads E and A once, writes gamma once; a step of either pass does
-    # C^2 adds, maxes, subtractions, exps and sums (the rest is O(C))
-    bound = _bound(4 * (2 * T * C + C * C), 2 * 5 * T * C * C)
-    kernel = _kernel("hmm_fb", "hmm.cu", "none: acoss_tpu/features/"
-                     "chord.py:72 (two lax.scans, no Pallas kernel)", err,
-                     ms, plain_ms, bound)
-    _phase(name, f"hmm_fb on ({T}, {C}) emissions: max abs err {err:.3g} "
-           f"(atol 1e-5), kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-           f"bound {bound[0]:.5f} ms ({bound[1]})")
+    kernel = _hmm_check(name, le, lt, reps=20)
 
     # one 300 s song: the takes concatenated
     song = audio[:300 * 44100]
-    seconds = {}
+    seconds, calls = {}, []
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with _extract_stage_clock(seconds):
+    with _extract_stage_clock(seconds), \
+            _spy(chord, "chord_forward_backward", calls):
         feats = pipeline.compute_features(song, device=dev)
     t_song = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1925,6 +1957,11 @@ def phase_extract(dev) -> tuple[dict, dict]:
            f"({feats['hpcp'].shape[0]} hpcp frames): {t_song:.2f} s, "
            f"peak device memory {peak:.2f} GiB; seconds: "
            + _stage_text(seconds, 1))
+    # and on the 300 s song's own emissions
+    (le, lt), _ = calls[0]
+    long_song = _hmm_check(name, le, lt, reps=10)
+    kernel["long_song"] = {k: long_song[k] for k in (
+        "shape", "chunk", "max_abs_err", "ms", "plain_ms", "bound_ms")}
 
     # Serra09 on the extracted features
     algo = Serra09()

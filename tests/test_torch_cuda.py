@@ -699,20 +699,27 @@ def _hmm_inputs(T: int, C: int = 25, seed: int = 0, flat: bool = False):
     return le.contiguous(), torch.from_numpy(lt)
 
 
-@pytest.mark.parametrize("T,C,flat", [(1, 25, False), (2, 25, False),
-                                      (37, 25, False), (6000, 25, False),
-                                      (500, 25, True), (300, 7, False),
-                                      (300, 32, False), (26000, 25, False)])
-def test_hmm_fb_kernel_matches_plain(dev, T, C, flat):
-    """The forward-backward kernel against its plain version on the card
-    (random emissions; T = 1; all-equal emissions; 7 and 32 states; a
-    5-minute song's 26,000 frames): posteriors within atol 1e-5 (the
-    log-sum-exps add in other orders; the messages are shifted to a
-    largest entry of 0, so no error grows with T), one launch a call."""
+@pytest.mark.parametrize("T,C,flat,chunk", [
+    (1, 25, False, None), (2, 25, False, None), (37, 25, False, None),
+    (6000, 25, False, None), (500, 25, True, None), (300, 7, False, None),
+    (300, 32, False, None), (26000, 25, False, None),
+    (64, 25, False, 64), (65, 25, False, 64), (127, 25, False, 64),
+    (65, 32, False, 64), (127, 7, False, 64), (25832, 25, False, None)])
+def test_hmm_fb_kernel_matches_plain(dev, monkeypatch, T, C, flat, chunk):
+    """The forward-backward kernel against its plain version and the plain
+    model of its chunked algorithm on the card (random emissions; T = 1;
+    all-equal emissions; 7 and 32 states; 5-minute songs of 26,000 and
+    25,832 frames; the chunk edges T = L, L + 1 and 2L - 1 at L = 64,
+    set in place of `chunk_length`'s):
+    posteriors within atol 1e-5 (the log-sum-exps add in other orders;
+    the messages are shifted to a largest entry of 0, so no error grows
+    with T), one launch a call."""
     from acoss_tpu_torch.ops import hmm_cuda
 
     le, lt = _hmm_inputs(T, C, seed=T + C, flat=flat)
     le, lt = le.to(dev), lt.to(dev)
+    L = chunk or hmm_cuda.chunk_length(T, hmm_cuda._sm_count(le.device))
+    monkeypatch.setattr(hmm_cuda, "chunk_length", lambda *_: L)
     fn = hmm_cuda.chord_forward_backward
     before = fn.launches
     got = fn(le, lt)
@@ -721,11 +728,57 @@ def test_hmm_fb_kernel_matches_plain(dev, T, C, flat):
     want = hmm_cuda.chord_forward_backward_ref(le, lt)
     assert got.shape == (T, C) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-5
+    model = hmm_cuda.chord_forward_backward_chunked_ref(le, lt, L)
+    assert float((got - model).abs().max()) <= 1e-5
     torch.testing.assert_close(got.sum(1), torch.ones(T, device=dev),
                                rtol=0, atol=1e-5)
     if flat:   # uniform emissions under a symmetric prior: uniform
         torch.testing.assert_close(got, torch.full_like(got, 1 / C),
                                    rtol=0, atol=1e-6)
+
+
+def _hmm_exact_inputs(kind: str):
+    """Inputs whose one-frame products leave the linear range: spiky
+    transitions (Dirichlet(0.05) rows, a -inf step out of every state)
+    under emissions spread over hundreds of nats, or a song whose state
+    changes every 100 frames under transitions of log -200."""
+    if kind == "switch":
+        A = torch.full((3, 3), -200.0)
+        A.fill_diagonal_(0.0)
+        E = torch.full((300, 3), -1000.0)
+        E[torch.arange(300), (torch.arange(300) // 100) % 3] = 0.0
+        return E, A
+    rng = np.random.default_rng(3)
+    C = 32
+    logits = rng.normal(0, 40, (300, C)).astype(np.float32)
+    le = torch.log_softmax(torch.from_numpy(logits), 1).contiguous()
+    with np.errstate(divide="ignore"):
+        lt = np.log(rng.dirichlet(np.full(C, 0.05), C)).astype(np.float32)
+    lt = torch.from_numpy(lt)
+    lt[torch.arange(C), (torch.arange(C) + 1) % C] = -torch.inf
+    return le, lt
+
+
+@pytest.mark.parametrize("kind,chunk", [("sticky", None), ("spiky", 16),
+                                        ("switch", 16), ("switch", None)])
+def test_hmm_fb_kernel_repeats_bit_for_bit(dev, monkeypatch, kind, chunk):
+    """Two calls give the same bits (no atomics, no order-free sums: the
+    crema feature feeds kNN ranks), on a 5,762-frame song and on inputs
+    that take the kernel's exact log-space branch, which also agree with
+    the plain version within atol 1e-5."""
+    from acoss_tpu_torch.ops import hmm_cuda
+
+    le, lt = (_hmm_inputs(5762, 25, seed=5) if kind == "sticky"
+              else _hmm_exact_inputs(kind))
+    le, lt = le.to(dev), lt.to(dev)
+    if chunk:
+        monkeypatch.setattr(hmm_cuda, "chunk_length", lambda *_: chunk)
+    a = hmm_cuda.chord_forward_backward(le, lt)
+    b = hmm_cuda.chord_forward_backward(le, lt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    want = hmm_cuda.chord_forward_backward_ref(le, lt)
+    assert float((a - want).abs().max()) <= 1e-5
 
 
 def test_hmm_fb_kernel_rejects_what_it_does_not_take(dev):
