@@ -104,12 +104,27 @@ def _host(v) -> np.ndarray:
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
+def _host_leaf(v) -> bool:
+    """A descriptor leaf in host memory (an array, or a CPU tensor)."""
+    return not isinstance(v, torch.Tensor) or v.device.type == "cpu"
+
+
 def _upload(desc: dict, device) -> dict:
     """Descriptors on `device`; disk memmaps are read into RAM first (a
-    tensor cannot wrap a read-only mapping)."""
-    return descriptors_from_numpy(
-        {k: np.array(v) if isinstance(v, np.memmap) else v
-         for k, v in desc.items()}, device)
+    tensor cannot wrap a read-only mapping). Counts the leaves it copies
+    from host memory to a device and their bytes (`store:h2d_copies`,
+    `store:h2d_bytes`)."""
+    with _prof.stages.stage("store:h2d"):
+        out = descriptors_from_numpy(
+            {k: np.array(v) if isinstance(v, np.memmap) else v
+             for k, v in desc.items()}, device)
+        if _prof.stages.enabled:
+            moved = [t for k, t in out.items() if t.device.type != "cpu"
+                     and _host_leaf(desc[k])]
+            _prof.stages.add("store:h2d_copies", len(moved))
+            _prof.stages.add("store:h2d_bytes",
+                             sum(t.nbytes for t in moved))
+    return out
 
 
 def _upload_full(desc: dict, device) -> dict:
@@ -147,12 +162,13 @@ def _tile_slice(desc: dict, lo: int, hi: int, tile: int) -> dict:
     memmap if the store is disk-backed), zero-padded up to `tile` rows:
     host memory never holds more than the active tiles."""
     out = {}
-    for k, v in desc.items():
-        s = np.array(v[lo:hi])
-        if s.shape[0] < tile:
-            s = np.pad(s, [(0, tile - s.shape[0])]
-                       + [(0, 0)] * (s.ndim - 1))
-        out[k] = s
+    with _prof.stages.stage("store:read"):
+        for k, v in desc.items():
+            s = np.array(v[lo:hi])
+            if s.shape[0] < tile:
+                s = np.pad(s, [(0, tile - s.shape[0])]
+                           + [(0, 0)] * (s.ndim - 1))
+            out[k] = s
     return out
 
 
@@ -188,92 +204,94 @@ class _TileSweeper:
                  symmetric: bool, scores_dir: str | None,
                  checkpoint_path: str | None, checkpoint_every: int = 16,
                  ckpt_extra: dict | None = None):
-        self.sim_types = tuple(sim_types)
-        self.n_songs = n_songs
-        self.tile = tile
-        self.symmetric = symmetric
-        self.scores_dir = scores_dir
-        self.checkpoint_path = checkpoint_path
-        self.checkpoint_every = checkpoint_every
-        self.ckpt_extra = dict(ckpt_extra or {})
-        self.n_tiles = n_tiles = -(-n_songs // tile)
+        with _prof.stages.stage("sweep:open"):
+            self.sim_types = tuple(sim_types)
+            self.n_songs = n_songs
+            self.tile = tile
+            self.symmetric = symmetric
+            self.scores_dir = scores_dir
+            self.checkpoint_path = checkpoint_path
+            self.checkpoint_every = checkpoint_every
+            self.ckpt_extra = dict(ckpt_extra or {})
+            self.n_tiles = n_tiles = -(-n_songs // tile)
 
-        if scores_dir is not None:
-            os.makedirs(scores_dir, exist_ok=True)
-            self.Ds = {}
-            for k in self.sim_types:
-                fn = os.path.join(scores_dir, f"{k}.npy")
-                if os.path.exists(fn):
-                    m = np.lib.format.open_memmap(fn, mode="r+")
-                    if m.shape != (n_songs, n_songs) or \
-                            m.dtype != np.float32:
-                        # a scores_dir reused across corpora would mix
-                        # stale and new scores (or die mid-sweep)
-                        raise ValueError(
-                            f"{fn} holds a {m.dtype} {m.shape} matrix "
-                            f"but this sweep needs float32 "
-                            f"({n_songs}, {n_songs}); delete the "
-                            f"scores_dir or use a fresh one")
-                    self.Ds[k] = m
-                else:
-                    self.Ds[k] = np.lib.format.open_memmap(
-                        fn, mode="w+", dtype=np.float32,
-                        shape=(n_songs, n_songs))
-        else:
-            self.Ds = {k: np.zeros((n_songs, n_songs), np.float32)
-                       for k in self.sim_types}
-        self.done = np.zeros((n_tiles, n_tiles), dtype=bool)
+            if scores_dir is not None:
+                os.makedirs(scores_dir, exist_ok=True)
+                self.Ds = {}
+                for k in self.sim_types:
+                    fn = os.path.join(scores_dir, f"{k}.npy")
+                    if os.path.exists(fn):
+                        m = np.lib.format.open_memmap(fn, mode="r+")
+                        if m.shape != (n_songs, n_songs) or \
+                                m.dtype != np.float32:
+                            # a scores_dir reused across corpora would mix
+                            # stale and new scores (or die mid-sweep)
+                            raise ValueError(
+                                f"{fn} holds a {m.dtype} {m.shape} matrix "
+                                f"but this sweep needs float32 "
+                                f"({n_songs}, {n_songs}); delete the "
+                                f"scores_dir or use a fresh one")
+                        self.Ds[k] = m
+                    else:
+                        self.Ds[k] = np.lib.format.open_memmap(
+                            fn, mode="w+", dtype=np.float32,
+                            shape=(n_songs, n_songs))
+            else:
+                self.Ds = {k: np.zeros((n_songs, n_songs), np.float32)
+                           for k in self.sim_types}
+            self.done = np.zeros((n_tiles, n_tiles), dtype=bool)
 
-        if checkpoint_path and os.path.exists(checkpoint_path):
-            with np.load(checkpoint_path) as z:
-                # the extra meta key sets must match EXACTLY in both
-                # directions: a plain sweep must not adopt a bucketed
-                # sweep's ledger (whose tiles index the length-SORTED
-                # order) just because its own ckpt_extra is empty
-                base = {"done", "tile", "n_songs"}
-                extra = {k for k in z.files
-                         if k not in base and not k.startswith("D::")}
-                meta_ok = (int(z["tile"]) == tile
-                           and int(z["n_songs"]) == n_songs
-                           and extra == set(self.ckpt_extra)
-                           and all(int(z[k]) == int(v)
-                                   for k, v in self.ckpt_extra.items()))
-                if meta_ok:
-                    self.done = z["done"]
-                    if scores_dir is None:
-                        for k in self.Ds:
-                            self.Ds[k] = z[f"D::{k}"]
+            if checkpoint_path and os.path.exists(checkpoint_path):
+                with np.load(checkpoint_path) as z:
+                    # the extra meta key sets must match EXACTLY in both
+                    # directions: a plain sweep must not adopt a bucketed
+                    # sweep's ledger (whose tiles index the length-SORTED
+                    # order) just because its own ckpt_extra is empty
+                    base = {"done", "tile", "n_songs"}
+                    extra = {k for k in z.files
+                             if k not in base and not k.startswith("D::")}
+                    meta_ok = (int(z["tile"]) == tile
+                               and int(z["n_songs"]) == n_songs
+                               and extra == set(self.ckpt_extra)
+                               and all(int(z[k]) == int(v)
+                                       for k, v in self.ckpt_extra.items()))
+                    if meta_ok:
+                        self.done = z["done"]
+                        if scores_dir is None:
+                            for k in self.Ds:
+                                self.Ds[k] = z[f"D::{k}"]
 
-        # `symmetrized.flag` certifies that the memmaps' upper triangle
-        # mirrors the CURRENT lower triangle. If this sweep will (re)write
-        # any tile (a fresh run over a reused scores_dir, or a partial
-        # resume) the certificate is stale: drop it so finalize()
-        # re-mirrors. Only the tiles a symmetric sweep enumerates count:
-        # strict-upper ledger entries are never set.
-        if scores_dir is not None and self.symmetric:
-            flag = os.path.join(scores_dir, "symmetrized.flag")
-            pending = ~self.done[np.tril_indices(n_tiles)]
-            if os.path.exists(flag) and pending.any():
-                os.remove(flag)
+            # `symmetrized.flag` certifies that the memmaps' upper triangle
+            # mirrors the CURRENT lower triangle. If this sweep will (re)write
+            # any tile (a fresh run over a reused scores_dir, or a partial
+            # resume) the certificate is stale: drop it so finalize()
+            # re-mirrors. Only the tiles a symmetric sweep enumerates count:
+            # strict-upper ledger entries are never set.
+            if scores_dir is not None and self.symmetric:
+                flag = os.path.join(scores_dir, "symmetrized.flag")
+                pending = ~self.done[np.tril_indices(n_tiles)]
+                if os.path.exists(flag) and pending.any():
+                    os.remove(flag)
 
-        self._row_idx = np.arange(tile)
-        self._pending: list = []
-        self._n_done_this_run = 0
+            self._row_idx = np.arange(tile)
+            self._pending: list = []
+            self._n_done_this_run = 0
 
     def save_ckpt(self) -> None:
         if not self.checkpoint_path:
             return
-        payload = {"done": self.done, "tile": self.tile,
-                   "n_songs": self.n_songs, **self.ckpt_extra}
-        if self.scores_dir is None:
-            for k, D in self.Ds.items():
-                payload[f"D::{k}"] = D
-        else:
-            for D in self.Ds.values():
-                D.flush()
-        tmp = self.checkpoint_path + ".tmp.npz"
-        np.savez(tmp, **payload)
-        os.replace(tmp, self.checkpoint_path)
+        with _prof.stages.stage("sweep:ledger"):
+            payload = {"done": self.done, "tile": self.tile,
+                       "n_songs": self.n_songs, **self.ckpt_extra}
+            if self.scores_dir is None:
+                for k, D in self.Ds.items():
+                    payload[f"D::{k}"] = D
+            else:
+                for D in self.Ds.values():
+                    D.flush()
+            tmp = self.checkpoint_path + ".tmp.npz"
+            np.savez(tmp, **payload)
+            os.replace(tmp, self.checkpoint_path)
 
     def flush(self) -> None:
         """Read back all pending tile results in ONE stacked transfer per
@@ -283,20 +301,22 @@ class _TileSweeper:
         with _prof.stages.stage("sweep:flush"):
             stacked = {k: torch.stack([p[2][k] for p in self._pending])
                        .cpu().numpy() for k in self.sim_types}
-        for b, (ti, tj, _) in enumerate(self._pending):
-            ij = np.meshgrid(self._row_idx + ti * self.tile,
-                             self._row_idx + tj * self.tile,
-                             indexing="ij")
-            keep = (ij[0] < self.n_songs) & (ij[1] < self.n_songs)
-            if self.symmetric:
-                keep &= ij[0] > ij[1]
-            else:
-                keep &= ij[0] != ij[1]
-            for k in stacked:
-                self.Ds[k][ij[0][keep], ij[1][keep]] = stacked[k][b][keep]
-            self.done[ti, tj] = True
-            self._n_done_this_run += 1
-        self._pending.clear()
+        with _prof.stages.stage("sweep:scatter"):
+            for b, (ti, tj, _) in enumerate(self._pending):
+                ij = np.meshgrid(self._row_idx + ti * self.tile,
+                                 self._row_idx + tj * self.tile,
+                                 indexing="ij")
+                keep = (ij[0] < self.n_songs) & (ij[1] < self.n_songs)
+                if self.symmetric:
+                    keep &= ij[0] > ij[1]
+                else:
+                    keep &= ij[0] != ij[1]
+                for k in stacked:
+                    self.Ds[k][ij[0][keep], ij[1][keep]] = \
+                        stacked[k][b][keep]
+                self.done[ti, tj] = True
+                self._n_done_this_run += 1
+            self._pending.clear()
 
     def submit(self, ti: int, tj: int, scores: dict) -> None:
         """Queue one tile's (still device-resident) scores; flushes in
@@ -409,11 +429,13 @@ def run_pairwise(
             # a resume or a process shard must not stream descriptors it
             # will never score
             continue
-        row = upcast_stream(block(ti))
+        with _prof.stages.stage("sweep:row"):
+            row = upcast_stream(block(ti))
         for tj in cols:
-            with _prof.stages.stage("sweep:tile"), \
-                    _prof.step_annotation("tile", ti=ti, tj=tj):
-                scores = algorithm.tile_scores(row, upcast_stream(block(tj)))
+            with _prof.stages.stage("sweep:tile", ti=ti, tj=tj):
+                col = upcast_stream(block(tj))
+                with _prof.stages.stage("score:tile"):
+                    scores = algorithm.tile_scores(row, col)
             sweep.submit(ti, tj, scores)
         if verbose:
             sweep.flush()
@@ -662,13 +684,14 @@ def run_pairwise_bucketed(
             continue
         # the row tile is fetched only when this row has work: a resume
         # must not re-stream the whole store
-        row = block(ti)
+        with _prof.stages.stage("sweep:row"):
+            row = block(ti)
         for tj in cols:
-            with _prof.stages.stage("sweep:tile"), \
-                    _prof.step_annotation("tile", ti=ti, tj=tj):
+            with _prof.stages.stage("sweep:tile", ti=ti, tj=tj):
                 r, c = _pad_tile_pair_axis1(row, block(tj))
-                scores = algorithm.tile_scores(upcast_stream(r),
-                                               upcast_stream(c))
+                r, c = upcast_stream(r), upcast_stream(c)
+                with _prof.stages.stage("score:tile"):
+                    scores = algorithm.tile_scores(r, c)
             sweep.submit(ti, tj, scores)
         if verbose:
             sweep.flush()
@@ -790,8 +813,7 @@ def run_pairwise_hybrid(
             futs = deque(prefetch.submit(load_col, tj)
                          for tj in needed[:2])
             for ci, tj in enumerate(needed):
-                with _prof.stages.stage("hybrid:col_tile"), \
-                        _prof.step_annotation("hybrid", panel=p, tj=tj):
+                with _prof.stages.stage("hybrid:col_tile", panel=p, tj=tj):
                     col = futs.popleft().result()
                     if ci + 2 < len(needed):
                         futs.append(prefetch.submit(load_col,
@@ -803,7 +825,9 @@ def run_pairwise_hybrid(
                     i = (ti - t_lo) * tile
                     row = upcast_stream({k: v[i:i + tile]
                                          for k, v in panel.items()})
-                    sweep.submit(ti, tj, algorithm.tile_scores(row, col))
+                    with _prof.stages.stage("score:tile"):
+                        scores = algorithm.tile_scores(row, col)
+                    sweep.submit(ti, tj, scores)
             del panel
             sweep.flush()
             if panel_times is not None:

@@ -35,10 +35,14 @@ panels with `--hybrid-panel`) into a partial-score file (the reference's
 grid of devices (`parallel.mesh`: the triangular fold for a symmetric
 algorithm, the rectangular sweep otherwise); with `--device cuda` it
 takes R * C visible cards, and a device that names one device (`cpu`,
-`cuda:0`) fills every slot. `--stage-times` prints per-stage wall seconds and
-`--profile LOGDIR` writes a `torch.profiler` trace. `-d` is a FeatureSet
-.npz or a directory of the reference's per-track .h5 files, for every
-command.
+`cuda:0`) fills every slot. `--stage-times` prints the program's spans
+(`utils.profiling.stages`: each span's total and self seconds, calls,
+milliseconds a call and parent, such as `sweep:tile` under no parent and
+`score:tile` and `store:*` under it) and its counters (`store:h2d_copies`,
+`store:h2d_bytes`); `--profile LOGDIR` writes a `torch.profiler` trace in
+which every span is a range of the same name beside the kernels, with its
+args (`ti=3 tj=1`). `-d` is a FeatureSet .npz or a directory of the
+reference's per-track .h5 files, for every command.
 
 `python -m acoss_tpu_torch query -a ALGORITHM -d <corpus> -q <queries>
  [--index-dir DIR] [--quant {half,int8}] [--top K] [--similarity-type T]
@@ -343,7 +347,8 @@ def _cmd_shard(args, algo, fs) -> int:
 def cmd_benchmark(args) -> int:
     from acoss_tpu_torch.utils import profiling
 
-    profiling.stages.enabled = bool(args.stage_times)
+    # the spans are the trace's ranges, so --profile turns them on too
+    profiling.stages.enabled = bool(args.stage_times or args.profile)
     profiling.stages.reset()
     try:
         with profiling.device_trace(args.profile):
@@ -626,10 +631,13 @@ def main(argv=None) -> int:
                         "such as cpu or cuda:0 fills every slot)")
     b.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="capture a torch.profiler trace of the run (CPU "
-                        "and CUDA activity) into LOGDIR/trace.json")
+                        "and CUDA activity, the program's spans as ranges) "
+                        "into LOGDIR/trace.json")
     b.add_argument("--stage-times", action="store_true",
-                   help="print accumulated per-stage wall timings "
-                        "(extract / sweep:tile / sweep:flush / eval ...)")
+                   help="print the program's spans (total and self "
+                        "seconds, calls, parent: extract / sweep:tile / "
+                        "score:tile / store:h2d / sweep:flush / eval ...) "
+                        "and counters (store:h2d_copies ...)")
     _device_arg(b, "the run")
     b.set_defaults(fn=cmd_benchmark)
 

@@ -24,6 +24,8 @@ import sys
 import numpy as np
 import torch
 
+from acoss_tpu_torch.utils.profiling import stages
+
 
 class DescriptorStore:
     """Directory of per-key `.npy` memmaps with leading dimension N."""
@@ -110,15 +112,16 @@ def upcast_stream(d: dict) -> dict:
     companions are consumed (dropped from the returned dict); every other
     leaf passes through."""
     out = {}
-    for k, v in d.items():
-        if k.endswith(QSCALE):
-            continue
-        if v.dtype in (torch.float16, torch.bfloat16):
-            v = v.float()
-        elif v.dtype == torch.int8 and k + QSCALE in d:
-            s = d[k + QSCALE].float()
-            v = v.float() * s.view(s.shape + (1,) * (v.ndim - s.ndim))
-        out[k] = v
+    with stages.stage("store:upcast"):
+        for k, v in d.items():
+            if k.endswith(QSCALE):
+                continue
+            if v.dtype in (torch.float16, torch.bfloat16):
+                v = v.float()
+            elif v.dtype == torch.int8 and k + QSCALE in d:
+                s = d[k + QSCALE].float()
+                v = v.float() * s.view(s.shape + (1,) * (v.ndim - s.ndim))
+            out[k] = v
     return out
 
 

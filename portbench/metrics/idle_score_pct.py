@@ -1,0 +1,13 @@
+"""The device's idle share of the traced stretch under the tile scoring:
+100 x the stretch's idle seconds (no kernel, copy or memset running)
+during which the main thread's innermost program span is a `score:`
+span, over the stretch's seconds (`portbench/spans.py`: exact overlaps)."""
+
+LAYER = "tile scoring"
+MOVES = "pairs_per_s"
+
+
+def read(tracer, window):
+    from portbench import spans
+
+    return spans.idle_pct(tracer.stretch_data, "score:")

@@ -425,6 +425,42 @@ def test_sweep_engine_on_the_card_equals_plain_sweep(dev, tmp_path, engine):
         assert np.array_equal(np.asarray(got[k]), want[k]), k
 
 
+def test_streamed_column_tile_is_six_copies(dev, tmp_path):
+    """A column tile of Serra09's int8 store reaches the card in six
+    copies (chroma, mfcc, their `@qscale` companions, gchroma, length),
+    as the `store:h2d_copies` counter counts them; a streamed sweep makes
+    six a tile and six a block-row."""
+    from acoss_tpu_torch.benchmarking import harness
+    from acoss_tpu_torch.data import LazySyntheticCorpus
+    from acoss_tpu_torch.data.descstore import extract_streamed
+    from acoss_tpu_torch.utils.profiling import stages
+
+    corpus = LazySyntheticCorpus(n_cliques=2, clique_size=3,
+                                 n_distractors=3)
+    n = corpus.n_songs
+    store = extract_streamed(Serra09(), corpus, str(tmp_path / "store"),
+                             quant="int8", half_min_bytes=16384, device=dev)
+    assert sorted(store) == ["chroma", "chroma@qscale", "gchroma", "length",
+                             "mfcc", "mfcc@qscale"]
+    stages.reset()
+    stages.enabled = True
+    try:
+        cols = harness._tile_slice(store, 4, 8, 4)
+        harness._upload(cols, dev)
+        assert stages.counters["store:h2d_copies"] == 6
+        assert stages.counters["store:h2d_bytes"] == sum(
+            v.nbytes for v in cols.values())
+        stages.reset()
+        harness.run_pairwise(Serra09(), store, n, tile=4, device=dev,
+                             device_resident=False)
+        torch.cuda.synchronize()
+        assert stages.counters["store:h2d_copies"] == 6 * (
+            stages.count["sweep:tile"] + stages.count["sweep:row"])
+    finally:
+        stages.enabled = False
+        stages.reset()
+
+
 # the families whose sweep is one fp32 Gram, with their CPU tolerance
 # (ANF's distances: rtol 1e-5 and 1e-5 of the largest, see test_torch_anf)
 GRAM_FAMILIES = {"FTM2D": (FTM2D, 0.0), "ANFScattering": (ANFScattering,

@@ -111,12 +111,18 @@ def test_stage_times_on_and_off():
 
 def test_device_trace_writes_a_trace(tmp_path):
     logdir = str(tmp_path / "trace")
-    with profiling.device_trace(logdir):
-        with profiling.step_annotation("tile", ti=0, tj=1):
-            torch.ones(8, 8) @ torch.ones(8, 8)
+    profiling.stages.enabled = True
+    try:
+        with profiling.device_trace(logdir):
+            with profiling.stages.stage("sweep:tile", ti=0, tj=1):
+                torch.ones(8, 8) @ torch.ones(8, 8)
+    finally:
+        profiling.stages.enabled = False
+        profiling.stages.reset()
     with open(os.path.join(logdir, profiling.TRACE_FILE)) as f:
         trace = json.load(f)
-    assert any(e.get("name") == "tile ti=0 tj=1"
+    assert any(e.get("name") == "sweep:tile"
+               and e["args"].get("span") == "ti=0 tj=1"
                for e in trace["traceEvents"])
     with profiling.device_trace(None):   # no-op path
         pass
@@ -131,15 +137,17 @@ def test_cli_profile_and_stage_times(tmp_path, monkeypatch, capsys):
                      "p", "--device", "cpu", "--no-checkpoint",
                      "--stage-times", "--profile", "prof"]) == 0
     out = capsys.readouterr().out
-    for stage in ("extract", "sweep", "sweep:tile", "sweep:flush", "eval"):
+    for stage in ("extract", "sweep", "sweep:tile", "sweep:flush", "eval",
+                  "score:tile", "sweep:row", "store:upcast"):
         assert any(ln.split()[:1] == [stage] for ln in out.splitlines()), \
             stage
     trace = tmp_path / "prof" / profiling.TRACE_FILE
     assert f"device trace written to {os.path.join('prof', 'trace.json')}" \
         in out
     with open(trace) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "tile ti=0 tj=0" in names
+        tiles = {e["args"].get("span") for e in json.load(f)["traceEvents"]
+                 if e.get("name") == "sweep:tile"}
+    assert "ti=0 tj=0" in tiles
     # the flags leave the process-global collector off
     assert not profiling.stages.enabled
 
