@@ -113,7 +113,13 @@ def _upload(desc: dict, device) -> dict:
     """Descriptors on `device`; disk memmaps are read into RAM first (a
     tensor cannot wrap a read-only mapping). Counts the leaves it copies
     from host memory to a device and their bytes (`store:h2d_copies`,
-    `store:h2d_bytes`)."""
+    `store:h2d_bytes`).
+
+    One synchronous copy a leaf, from pageable memory. It serves whole
+    corpora, panels and single leaves (`_device_blocks`, `_upload_full`,
+    serving) and the tiles of the bucketed sweep and of the hybrid sweep
+    (whose worker threads rely on the copies being ordered). The streamed
+    `run_pairwise` goes through `_TileStager` instead."""
     with _prof.stages.stage("store:h2d"):
         out = descriptors_from_numpy(
             {k: np.array(v) if isinstance(v, np.memmap) else v
@@ -160,7 +166,9 @@ def _device_blocks(desc: dict, n: int, tile: int, device):
 def _tile_slice(desc: dict, lo: int, hi: int, tile: int) -> dict:
     """Rows [lo, hi) of each descriptor copied to host RAM (out of a disk
     memmap if the store is disk-backed), zero-padded up to `tile` rows:
-    host memory never holds more than the active tiles."""
+    host memory never holds more than the active tiles. Feeds `_upload`
+    for the bucketed and hybrid sweeps; `_TileStager` gives the same rows,
+    bit for bit, for the streamed `run_pairwise`."""
     out = {}
     with _prof.stages.stage("store:read"):
         for k, v in desc.items():
@@ -170,6 +178,103 @@ def _tile_slice(desc: dict, lo: int, hi: int, tile: int) -> dict:
                            + [(0, 0)] * (s.ndim - 1))
             out[k] = s
     return out
+
+
+#: pinned host slabs a `_TileStager` cycles through: the host runs at most
+#: this many tile fetches ahead of the device's copies
+STAGE_RING = 4
+#: byte alignment of each leaf inside a staged tile
+STAGE_ALIGN = 256
+
+
+class _TileStager:
+    """Tiles of host descriptors (disk memmaps, arrays) on `device`, each
+    in ONE copy that does not block the host.
+
+    A pageable `.to(device)` waits for the device's queue to drain, six
+    times a Serra09 tile; here the host fills a pinned slab and goes on
+    enqueueing while the copy and the previous tile's kernels run. Each
+    of `STAGE_RING` slabs holds one tile of every leaf, at
+    `STAGE_ALIGN`-byte offsets, and carries an event recorded after its
+    copy: a slab is refilled only once that event has completed (a wait
+    counted by `store:stage_waits`), so pinned memory stays at
+    `STAGE_RING` tiles. Copies and events go on the stream that was
+    current when the stager was made.
+
+    `block(i)` returns rows [i * tile, (i + 1) * tile) of every leaf,
+    zero-padded past the end, as contiguous views of one fresh device
+    buffer, which the caching allocator frees in stream order: the same
+    keys, shapes, dtypes and bytes as `_upload(_tile_slice(desc, ...),
+    device)`. Spans: the slab's wait and fill in `store:read`, the copy's
+    issue in `store:h2d` (one `store:h2d_copies`, the leaves' bytes in
+    `store:h2d_bytes`). On a CPU device nothing leaves the host: the
+    slabs are not pinned, no event is recorded, and, as in `_upload`, no
+    copy is counted (nor `store:stage_waits`)."""
+
+    def __init__(self, desc: dict, tile: int, device):
+        self.device = torch.device(device)
+        self.tile = tile
+        #: (key, array, offset, bytes, torch dtype, shape); a memmap is
+        #: kept as a plain array over its mapping, which slices faster
+        self.leaves = []
+        off = 0
+        for k, v in desc.items():
+            v = np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
+            shape = (tile,) + v.shape[1:]
+            n = v.dtype.itemsize * int(np.prod(shape))
+            self.leaves.append((k, v, off, n, torch.from_numpy(
+                np.empty(0, v.dtype)).dtype, shape))
+            off += -(-n // STAGE_ALIGN) * STAGE_ALIGN
+        self.nbytes = off
+        self.leaf_bytes = sum(leaf[3] for leaf in self.leaves)
+        cuda = self.device.type == "cuda"
+        self.slabs = [torch.empty(self.nbytes, dtype=torch.uint8,
+                                  pin_memory=cuda)
+                      for _ in range(STAGE_RING)]
+        # each slab's leaves as numpy arrays over it, made once
+        self.dsts = [[slab.numpy()[off:off + n].view(v.dtype).reshape(shape)
+                      for _, v, off, n, _, shape in self.leaves]
+                     for slab in self.slabs]
+        self.events = [torch.cuda.Event() if cuda else None
+                       for _ in self.slabs]
+        self.stream = torch.cuda.current_stream(self.device) if cuda \
+            else None
+        #: counted as `_upload` counts: only a copy that leaves the host
+        self.moves = self.device.type != "cpu"
+        self.next = 0
+
+    def _fill(self, s: int, lo: int) -> None:
+        """Rows [lo, lo + tile) of every leaf into slab `s`, zeros past
+        the end of the leaf."""
+        for (_, v, *_), dst in zip(self.leaves, self.dsts[s]):
+            src = v[lo:lo + self.tile]
+            rows = src.shape[0]
+            np.copyto(dst[:rows], src)
+            if rows < self.tile:
+                dst[rows:] = 0    # a reused slab holds an older tile
+
+    def block(self, i: int) -> dict:
+        s = self.next
+        self.next = (s + 1) % STAGE_RING
+        event = self.events[s]
+        with _prof.stages.stage("store:read"):
+            wait = event is not None and not event.query()
+            if wait:
+                event.synchronize()
+            if self.moves:
+                _prof.stages.add("store:stage_waits", int(wait))
+            self._fill(s, i * self.tile)
+        with _prof.stages.stage("store:h2d"):
+            buf = torch.empty(self.nbytes, dtype=torch.uint8,
+                              device=self.device)
+            buf.copy_(self.slabs[s], non_blocking=True)
+            if event is not None:
+                event.record(self.stream)
+            _prof.stages.add("store:h2d_copies", int(self.moves))
+            _prof.stages.add("store:h2d_bytes", self.leaf_bytes * self.moves)
+            out = {k: buf[off:off + n].view(dtype).view(shape)
+                   for k, _, off, n, dtype, shape in self.leaves}
+        return out
 
 
 def _symmetrize_from_lower(D, block: int = 4096) -> None:
@@ -380,9 +485,12 @@ def run_pairwise(
     host link during the sweep. Off, the sweep STREAMS: the row tile is
     uploaded once per block-row (only if that row has work) and each
     column tile is sliced from the (memmapped) descriptors and uploaded
-    on its own, so host memory stays bounded by the tile size. Quantized
-    descriptors are restored to fp32 on the device per tile. Tile results
-    stay on the device until a batched flush.
+    on its own, so host memory stays bounded by the tile size. Each
+    streamed tile is staged in a ring of pinned host slabs and sent in
+    one copy that does not block the host (`_TileStager`), so on a card
+    the host enqueues the next tile while the device runs this one.
+    Quantized descriptors are restored to fp32 on the device per tile.
+    Tile results stay on the device until a batched flush.
 
     With `checkpoint_path`, the ledger of completed tiles (plus the
     partial score matrices when they live in RAM) is saved every
@@ -415,9 +523,7 @@ def run_pairwise(
     if device_resident:
         block = _device_blocks(desc, n_songs, tile, device)
     else:
-        def block(i: int) -> dict:
-            return _upload(_tile_slice(desc, i * tile, (i + 1) * tile,
-                                       tile), device)
+        block = _TileStager(desc, tile, device).block
 
     t0 = time.time()
     for ti in range(n_tiles):

@@ -39,10 +39,11 @@ takes R * C visible cards, and a device that names one device (`cpu`,
 (`utils.profiling.stages`: each span's total and self seconds, calls,
 milliseconds a call and parent, such as `sweep:tile` under no parent and
 `score:tile` and `store:*` under it) and its counters (`store:h2d_copies`,
-`store:h2d_bytes`); `--profile LOGDIR` writes a `torch.profiler` trace in
-which every span is a range of the same name beside the kernels, with its
-args (`ti=3 tj=1`). `-d` is a FeatureSet .npz or a directory of the
-reference's per-track .h5 files, for every command.
+`store:h2d_bytes`, and on a card's streamed sweep `store:stage_waits`);
+`--profile LOGDIR` writes a `torch.profiler` trace in which every span is
+a range of the same name beside the kernels, with its args (`ti=3 tj=1`).
+`-d` is a FeatureSet .npz or a directory of the reference's per-track .h5
+files, for every command.
 
 `python -m acoss_tpu_torch query -a ALGORITHM -d <corpus> -q <queries>
  [--index-dir DIR] [--quant {half,int8}] [--top K] [--similarity-type T]

@@ -425,40 +425,106 @@ def test_sweep_engine_on_the_card_equals_plain_sweep(dev, tmp_path, engine):
         assert np.array_equal(np.asarray(got[k]), want[k]), k
 
 
-def test_streamed_column_tile_is_six_copies(dev, tmp_path):
-    """A column tile of Serra09's int8 store reaches the card in six
-    copies (chroma, mfcc, their `@qscale` companions, gchroma, length),
-    as the `store:h2d_copies` counter counts them; a streamed sweep makes
-    six a tile and six a block-row."""
-    from acoss_tpu_torch.benchmarking import harness
+def _serra09_int8_store(dev, path, **corpus):
     from acoss_tpu_torch.data import LazySyntheticCorpus
     from acoss_tpu_torch.data.descstore import extract_streamed
-    from acoss_tpu_torch.utils.profiling import stages
 
-    corpus = LazySyntheticCorpus(n_cliques=2, clique_size=3,
-                                 n_distractors=3)
-    n = corpus.n_songs
-    store = extract_streamed(Serra09(), corpus, str(tmp_path / "store"),
-                             quant="int8", half_min_bytes=16384, device=dev)
+    corpus = LazySyntheticCorpus(**corpus)
+    store = extract_streamed(Serra09(), corpus, str(path), quant="int8",
+                             half_min_bytes=16384, device=dev)
     assert sorted(store) == ["chroma", "chroma@qscale", "gchroma", "length",
                              "mfcc", "mfcc@qscale"]
+    return store, corpus.n_songs
+
+
+def test_upload_is_six_copies_a_tile_staged_sweep_one_a_fetch(dev,
+                                                              tmp_path):
+    """A column tile of Serra09's int8 store uploaded directly
+    (`_upload(_tile_slice(...))`, the bucketed and hybrid sweeps' path)
+    reaches the card in six copies (chroma, mfcc, their `@qscale`
+    companions, gchroma, length), as `store:h2d_copies` counts them; the
+    streamed `run_pairwise` stages each fetch and makes one copy a
+    `sweep:tile` and one a `sweep:row`, of the same bytes."""
+    from acoss_tpu_torch.benchmarking import harness
+    from acoss_tpu_torch.utils.profiling import stages
+
+    store, n = _serra09_int8_store(dev, tmp_path / "store", n_cliques=2,
+                                   clique_size=3, n_distractors=3)
     stages.reset()
     stages.enabled = True
     try:
         cols = harness._tile_slice(store, 4, 8, 4)
         harness._upload(cols, dev)
         assert stages.counters["store:h2d_copies"] == 6
-        assert stages.counters["store:h2d_bytes"] == sum(
-            v.nbytes for v in cols.values())
+        tile_bytes = sum(v.nbytes for v in cols.values())
+        assert stages.counters["store:h2d_bytes"] == tile_bytes
         stages.reset()
         harness.run_pairwise(Serra09(), store, n, tile=4, device=dev,
                              device_resident=False)
         torch.cuda.synchronize()
-        assert stages.counters["store:h2d_copies"] == 6 * (
-            stages.count["sweep:tile"] + stages.count["sweep:row"])
+        fetches = stages.count["sweep:tile"] + stages.count["sweep:row"]
+        assert fetches == 6 + 3
+        assert stages.counters["store:h2d_copies"] == fetches
+        assert stages.counters["store:h2d_bytes"] == fetches * tile_bytes
+        assert "store:stage_waits" in stages.counters
     finally:
         stages.enabled = False
         stages.reset()
+
+
+@pytest.mark.parametrize("held_back", [False, True],
+                         ids=["free", "device-held-back"])
+def test_staged_sweep_bit_equal_to_upload_sweep(dev, tmp_path, monkeypatch,
+                                                held_back):
+    """The streamed sweep on the staged path (pinned slabs, one
+    non-blocking copy a fetch) gives the score matrices of the same sweep
+    forced through `_upload(_tile_slice(...))`, bit for bit; also when
+    every tile's kernels wait behind a device sleep, so the host fills
+    the slab ring and has to wait for a slab's copy (`store:stage_waits`
+    > 0) before reusing it."""
+    from acoss_tpu_torch.benchmarking import harness
+    from acoss_tpu_torch.utils.profiling import stages
+
+    store, n = _serra09_int8_store(dev, tmp_path / "store", n_cliques=3,
+                                   clique_size=3, n_distractors=7)
+
+    class HeldBack(Serra09):
+        def tile_scores(self, row, col, plain=False):
+            if held_back:
+                torch.cuda._sleep(50_000_000)      # ~25 ms of the card
+            return super().tile_scores(row, col, plain)
+
+    # the kernels built first, so the sweep's host work a tile is short
+    harness.run_pairwise(Serra09(), store, n, tile=4, device=dev,
+                         device_resident=False,
+                         tile_filter=lambda ti, tj: (ti, tj) == (1, 0))
+    stages.reset()
+    stages.enabled = True
+    try:
+        got = harness.run_pairwise(HeldBack(), store, n, tile=4, device=dev,
+                                   device_resident=False)
+        torch.cuda.synchronize()
+        waits = stages.counters["store:stage_waits"]
+        fetches = stages.count["sweep:tile"] + stages.count["sweep:row"]
+        assert stages.counters["store:h2d_copies"] == fetches
+    finally:
+        stages.enabled = False
+        stages.reset()
+    if held_back:
+        assert waits > 0
+    assert waits <= fetches - harness.STAGE_RING
+
+    class Upload:
+        def __init__(self, desc, tile, device):
+            self.block = lambda i: harness._upload(harness._tile_slice(
+                desc, i * tile, (i + 1) * tile, tile), device)
+
+    monkeypatch.setattr(harness, "_TileStager", Upload)
+    want = harness.run_pairwise(Serra09(), store, n, tile=4, device=dev,
+                                device_resident=False)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
 
 
 # the families whose sweep is one fp32 Gram, with their CPU tolerance

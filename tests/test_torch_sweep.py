@@ -352,9 +352,11 @@ def test_completed_resume_streams_nothing(tmp_path, engine, monkeypatch):
     ckpt = str(tmp_path / "ledger.npz")
     want, _ = _run(engine, "port", tmp_path, fs, ckpt)
     uploads = []
-    real = H._upload
+    real, staged = H._upload, H._TileStager.block
     monkeypatch.setattr(H, "_upload",
                         lambda d, dev: uploads.append(1) or real(d, dev))
+    monkeypatch.setattr(H._TileStager, "block",
+                        lambda st, i: uploads.append(1) or staged(st, i))
     got, calls = _run(engine, "port", tmp_path, fs, ckpt)
     assert uploads == [] and calls == 0
     np.testing.assert_array_equal(got, want)
