@@ -18,9 +18,19 @@ sub-blocks of at most `MAX_PAIRS_PER_CALL // col_tile` songs, so one
 per pair, so the split does not change them.
 
 A device may appear more than once in a mesh (`[torch.device("cpu")] * 8`,
-or one card repeated): its blocks then run one after another. Every block
-is enqueued before the first readback, so blocks on distinct cards
-overlap.
+or one card repeated): its blocks then run one after another. The calls
+are enqueued round robin, one a device slot a turn (each slot's in its
+own block order), and every block before the first readback: a CUDA
+stream holds only about a thousand pending launches before the host
+blocks in it, so a slot enqueued whole would hold the host until that
+card had nearly drained, and the cards would run one after another.
+
+Spans and counters (`utils.profiling.stages`): `mesh:restore` (a slot's
+rows and columns copied to its device and restored to fp32), `mesh:enqueue`
+(one `tile_scores` call), `mesh:gather` (a block read back into the host
+matrix), `mesh:fold` (the fold's triangle, mirror and crop; the
+rectangular sweep's crop); counters `mesh:calls` (calls enqueued) and
+`mesh:blocks` (blocks read back).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import numpy as np
 import torch
 
 from acoss_tpu_torch.data.descstore import upcast_stream
+from acoss_tpu_torch.utils.profiling import stages
 
 #: The most pairs one `tile_scores` call of a mesh block scores.
 MAX_PAIRS_PER_CALL = 4096
@@ -93,9 +104,12 @@ def _pad_rows(desc: dict, n_to: int) -> dict:
 
 
 def _rows_on(desc: dict, lo: int, hi: int, device) -> dict:
-    """Rows [lo, hi) of every leaf, copied to `device`."""
-    return {k: (v[lo:hi] if isinstance(v, torch.Tensor)
-                else torch.from_numpy(np.array(v[lo:hi]))).to(device)
+    """Rows [lo, hi) of every leaf, copied to `device`: a host leaf in one
+    copy (a 98 MB corpus takes ~12 ms to a card where a host copy first
+    took ~37 ms, H100)."""
+    return {k: v[lo:hi].to(device) if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(
+                device, copy=True)
             for k, v in desc.items()}
 
 
@@ -109,25 +123,65 @@ def _device_scope(device: torch.device):
         else contextlib.nullcontext()
 
 
-def _block_scores(tile_scores_fn, rows: dict, cols: dict,
-                  col_tile: int) -> dict:
-    """{type: (n_rows, n_cols) tensor} of a device block: row sub-blocks
-    of at most MAX_PAIRS_PER_CALL // col_tile songs against column tiles
-    of `col_tile`, each side restored to fp32 (`upcast_stream`); nothing
-    is read back."""
-    n_rows = next(iter(rows.values())).shape[0]
-    n_cols = next(iter(cols.values())).shape[0]
+def _slot_calls(tile_scores_fn, dev: torch.device, load, col_tile: int,
+                done: list):
+    """A generator that enqueues one device slot's `tile_scores` calls, one
+    a step. `load()` (run on the slot's first step, under the slot's
+    device) returns its blocks, [(key, rows, cols)] of fp32 leaves on
+    `dev`; in each block, row sub-blocks of at most MAX_PAIRS_PER_CALL //
+    col_tile songs meet column tiles of `col_tile`. A block's
+    {type: (n_rows, n_cols) tensor} is appended to `done` as (key,
+    scores) after its last call; nothing is read back."""
+    name = str(dev)
     sub = max(1, MAX_PAIRS_PER_CALL // col_tile)
-    row_blocks = [upcast_stream(_slice(rows, lo, lo + sub))
-                  for lo in range(0, n_rows, sub)]
-    pieces = [[] for _ in row_blocks]
-    for t in range(0, n_cols, col_tile):
-        col_t = upcast_stream(_slice(cols, t, t + col_tile))
-        for piece, row in zip(pieces, row_blocks):
-            piece.append(tile_scores_fn(row, col_t))
-    return {k: torch.cat([torch.cat([s[k] for s in piece], dim=1)
-                          for piece in pieces])
-            for k in pieces[0][0]}
+    with _device_scope(dev):
+        blocks = load()
+    for key, rows, cols in blocks:
+        n_rows = next(iter(rows.values())).shape[0]
+        n_cols = next(iter(cols.values())).shape[0]
+        starts = range(0, n_rows, sub)
+        pieces = [[] for _ in starts]
+        for t in range(0, n_cols, col_tile):
+            col_t = _slice(cols, t, t + col_tile)
+            for piece, lo in zip(pieces, starts):
+                with _device_scope(dev), stages.stage(
+                        "mesh:enqueue", dev=name, rc=key[0], cc=key[1]):
+                    piece.append(tile_scores_fn(_slice(rows, lo, lo + sub),
+                                                col_t))
+                stages.add("mesh:calls", 1)
+                yield
+        with _device_scope(dev):
+            done.append((key, {
+                k: torch.cat([torch.cat([s[k] for s in piece], dim=1)
+                              for piece in pieces])
+                for k in pieces[0][0]}))
+
+
+def _round_robin(slots: list) -> None:
+    """Advance every generator one step a turn, in order, until all end."""
+    while slots:
+        slots = [g for g in slots if next(g, False) is not False]
+
+
+def _restore(desc: dict, lo: int, hi: int, dev: torch.device) -> dict:
+    """Rows [lo, hi) of every leaf on `dev`, restored to fp32."""
+    with stages.stage("mesh:restore", dev=str(dev)):
+        return upcast_stream(_rows_on(desc, lo, hi, dev))
+
+
+def _gather(done: list, n_pad: int, rows: int, cols: int) -> dict:
+    """{type: (n_pad, n_pad) np.float32} with each block (key (i, j)) of
+    `done` read back into rows [i * rows, (i + 1) * rows) and columns
+    [j * cols, (j + 1) * cols)."""
+    Ms = {}
+    for (i, j), scores in done:
+        with stages.stage("mesh:gather"):
+            for k, v in scores.items():
+                M = Ms.setdefault(k, np.zeros((n_pad, n_pad), np.float32))
+                M[i * rows:(i + 1) * rows,
+                  j * cols:(j + 1) * cols] = v.cpu().numpy()
+        stages.add("mesh:blocks", 1)
+    return Ms
 
 
 def sharded_pair_scores(tile_scores_fn, desc: dict, n_songs: int,
@@ -154,21 +208,19 @@ def sharded_pair_scores(tile_scores_fn, desc: dict, n_songs: int,
     n_pad = -(-n_songs // quantum) * quantum
     desc = _pad_rows(desc, n_pad)
     nr, nc = n_pad // r, n_pad // c
-    pending = []
-    for i in range(r):
-        for j in range(c):
-            dev = torch.device(mesh[i, j])
-            with _device_scope(dev):
-                rows = _rows_on(desc, i * nr, (i + 1) * nr, dev)
-                cols = _rows_on(desc, j * nc, (j + 1) * nc, dev)
-                pending.append((i, j, _block_scores(tile_scores_fn, rows,
-                                                    cols, col_tile)))
-    out = {}
-    for i, j, scores in pending:
-        for k, v in scores.items():
-            M = out.setdefault(k, np.zeros((n_pad, n_pad), np.float32))
-            M[i * nr:(i + 1) * nr, j * nc:(j + 1) * nc] = v.cpu().numpy()
-    return {k: v[:n_songs, :n_songs] for k, v in out.items()}
+
+    done = []
+
+    def slot(i, j):
+        dev = torch.device(mesh[i, j])
+        return _slot_calls(tile_scores_fn, dev, lambda: [(
+            (i, j), _restore(desc, i * nr, (i + 1) * nr, dev),
+            _restore(desc, j * nc, (j + 1) * nc, dev))], col_tile, done)
+
+    _round_robin([slot(i, j) for i in range(r) for j in range(c)])
+    Ms = _gather(done, n_pad, nr, nc)
+    with stages.stage("mesh:fold"):
+        return {k: v[:n_songs, :n_songs] for k, v in Ms.items()}
 
 
 def fold_blocks(n_devices: int) -> list[list[tuple[int, int]]]:
@@ -204,23 +256,23 @@ def sharded_pair_scores_triangular(tile_scores_fn, desc: dict,
     chunk = -(-chunk // col_tile) * col_tile
     n_pad = two_d * chunk
     desc = _pad_rows(desc, n_pad)
-    pending = []
-    for dev, blocks in zip(devices, fold_blocks(len(devices))):
-        with _device_scope(dev):
-            full = _rows_on(desc, 0, n_pad, dev)
-            for rc, cc in blocks:
-                rows = _slice(full, rc * chunk, (rc + 1) * chunk)
-                cols = _slice(full, cc * chunk, (cc + 1) * chunk)
-                pending.append((rc, cc, _block_scores(
-                    tile_scores_fn, rows, cols, col_tile)))
-    Ms = {}
-    for rc, cc, scores in pending:
-        for k, v in scores.items():
-            M = Ms.setdefault(k, np.zeros((n_pad, n_pad), np.float32))
-            M[rc * chunk:(rc + 1) * chunk,
-              cc * chunk:(cc + 1) * chunk] = v.cpu().numpy()
+
+    done = []
+
+    def slot(dev, owned):
+        def load():
+            full = _restore(desc, 0, n_pad, dev)
+            return [((rc, cc), _slice(full, rc * chunk, (rc + 1) * chunk),
+                     _slice(full, cc * chunk, (cc + 1) * chunk))
+                    for rc, cc in owned]
+        return _slot_calls(tile_scores_fn, dev, load, col_tile, done)
+
+    _round_robin([slot(dev, owned) for dev, owned in
+                  zip(devices, fold_blocks(len(devices)))])
+    Ms = _gather(done, n_pad, chunk, chunk)
     out = {}
-    for k, M in Ms.items():
-        L = np.tril(M, -1)
-        out[k] = (L + L.T)[:n_songs, :n_songs]
+    with stages.stage("mesh:fold"):
+        for k, M in Ms.items():
+            L = np.tril(M, -1)
+            out[k] = (L + L.T)[:n_songs, :n_songs]
     return out

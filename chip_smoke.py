@@ -59,14 +59,15 @@ songs, 210 tiles, 12,720 pairs):
 - `coverstats`: the CLI's five default studies and `tag`, no figures; one
   kNN-mask launch a song in the shape-DNA study, its first three == plain
   bit for bit, 8 songs' eigenvalues within 1e-4 of the plain path's;
-- `mesh`: the device-mesh sweeps over four slots of card 0 (one card
-  cannot show blocks on distinct cards): `sharded_pair_scores` on a 2 x 2
-  grid (strict lower triangle == the main path's matrices bit for bit)
-  and `sharded_pair_scores_triangular` over 4 slots (whole matrix == the
-  main path's), each launching the fused CRP, qmax and dmax as often as
-  its tile calls imply; `benchmark --mesh 2x2 --device cuda:0` for
-  Serra09 (the fold; MAP rows == the main path's) and Simple (the
-  rectangular branch; matrix == the simple phase's); then
+- `mesh`: the device-mesh sweeps over four slots of card 0:
+  `sharded_pair_scores` on a 2 x 2 grid (strict lower triangle == the
+  main path's matrices bit for bit) and `sharded_pair_scores_triangular`
+  over 4 slots (whole matrix == the main path's), and with four or more
+  cards visible the same fold over cards 0-3, each launching the fused
+  CRP, qmax and dmax as often as its tile calls imply; `benchmark --mesh
+  2x2 --device cuda:0` for Serra09 (the fold; MAP rows == the main
+  path's) and Simple (the rectangular branch; matrix == the simple
+  phase's); then
   `dryrun_multichip(4, device="cuda:0")`; pairs/s beside the main path's;
 
 then Serra09 at Da-TACOS song geometry through the sweep engines
@@ -2411,7 +2412,8 @@ def phase_mesh(dev, fs, desc: dict, main_Ds: dict, main_rate: float,
     four slots of one card: `sharded_pair_scores` on a 2 x 2 grid (its
     strict lower triangle == the main path's matrices bit for bit) and
     `sharded_pair_scores_triangular` over 4 slots (its whole matrix == the
-    main path's mirrored matrices bit for bit); the CLI's `--mesh 2x2
+    main path's mirrored matrices bit for bit), and with four cards
+    visible the same fold over cards 0-3 (the same); the CLI's `--mesh 2x2
     --device cuda:0` for Serra09 (the fold; MAP rows == the main path's)
     and for Simple (the rectangular branch; its matrix == the simple
     phase's off the diagonal); every path's fused-CRP / qmax / dmax
@@ -2443,6 +2445,12 @@ def phase_mesh(dev, fs, desc: dict, main_Ds: dict, main_rate: float,
                   fn, desc, n, make_pair_mesh(slots, (2, 2)), col_tile=T),
               "fold": lambda fn: sharded_pair_scores_triangular(
                   fn, desc, n, devices=slots, col_tile=T)}
+    cards = [torch.device(dev.type, i) for i in range(4)]
+    if torch.cuda.device_count() >= 4:
+        # the same fold over four distinct cards
+        n_calls["fold4"] = n_calls["fold"]
+        sweeps["fold4"] = lambda fn: sharded_pair_scores_triangular(
+            fn, desc, n, devices=cards, col_tile=T)
     counts, seconds, computed = {}, {}, {}
     for what, sweep in sweeps.items():
         calls = []
@@ -2518,6 +2526,15 @@ def phase_mesh(dev, fs, desc: dict, main_Ds: dict, main_rate: float,
            f"== the main path's bit for bit; launches " + "; ".join(
                f"{w} " + ", ".join(f"{k} {v}" for k, v in c.items())
                for w, c in counts.items()))
+    if "fold4" in seconds:
+        _phase(name, f"fold over {', '.join(map(str, cards))}: "
+               f"{n_calls['fold4']} calls, whole matrix == the main path's "
+               f"bit for bit; {pairs / seconds['fold4']:.1f} pairs/s "
+               f"({seconds['fold4']:.3f} s) against "
+               f"{pairs / seconds['fold']:.1f} over 4 x {card}")
+    else:
+        _phase(name, f"{torch.cuda.device_count()} card(s) visible: no fold "
+               f"over four distinct cards")
     _phase(name, f"CLI --mesh 2x2 --device {card}: Serra09 (fold) MAP rows "
            f"== the main path's ({t_cli:.2f} s with extraction), Simple "
            f"(rectangular) matrix == the simple phase's")

@@ -1169,6 +1169,43 @@ def test_mesh_over_one_card_equals_run_pairwise(dev):
         np.testing.assert_array_equal(fold[k], want[k], err_msg=k)
 
 
+def test_mesh_over_four_cards_equals_run_pairwise(dev):
+    """The fold and the 2x2 rectangle over cards 0-3 (blocks on distinct
+    cards, enqueued round robin, the corpus restored on each card) equal
+    card 0's run_pairwise bit for bit, called from a current device that
+    is not the mesh's first; and the tile's kernel wrappers on every card
+    leave the caller's current device as it was."""
+    from acoss_tpu_torch.benchmarking.harness import run_pairwise
+    from acoss_tpu_torch.data.descstore import upcast_stream
+    from acoss_tpu_torch.parallel import (make_pair_mesh, sharded_pair_scores,
+                                          sharded_pair_scores_triangular)
+    from acoss_tpu_torch.parallel.mesh import _rows_on
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    n, algo, desc = _mesh_corpus(dev)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    want = run_pairwise(algo, desc, n, device=cards[0])
+    with torch.cuda.device(cards[2]):
+        rect = sharded_pair_scores(algo.tile_scores, desc, n,
+                                   make_pair_mesh(cards, (2, 2)))
+        fold = sharded_pair_scores_triangular(algo.tile_scores, desc, n,
+                                              devices=cards)
+        assert torch.cuda.current_device() == 2
+    tril = np.tril_indices(n, -1)
+    for k in want:
+        np.testing.assert_array_equal(rect[k][tril], want[k][tril], err_msg=k)
+        np.testing.assert_array_equal(fold[k], want[k], err_msg=k)
+    for i, card in enumerate(cards):
+        here = (i + 1) % 4
+        part = upcast_stream(_rows_on(desc, 0, 8, card))
+        with torch.cuda.device(here):
+            out = algo.tile_scores(part, part)
+            assert torch.cuda.current_device() == here, card
+        assert all(v.device == card for v in out.values())
+        torch.cuda.synchronize(card)
+
+
 def test_mesh_sub_blocks_on_the_card_equal_cpu(dev, monkeypatch):
     """A device block whose rows exceed MAX_PAIRS_PER_CALL // col_tile is
     split on the card (no call scores more than the constant), and the

@@ -163,6 +163,116 @@ def test_row_sub_blocks(corpus, monkeypatch, pairs):
         np.testing.assert_array_equal(split[k], one[k], err_msg=k)
 
 
+SLOTS4 = [torch.device("cpu")] * 4
+
+
+@pytest.fixture(scope="module")
+def recorded(corpus):
+    """The fold over 4 CPU slots (column tiles of 2: 16 padded songs,
+    chunks of 2, one call a block) and the 2x2 rectangular sweep (column
+    tiles of 2: blocks of 8 x 8, 4 calls each), each run once with the
+    stage collector on and a `tile_scores_fn` that records which slot
+    each call came from: a slot's rows are views of the copy restored for
+    it alone, so the storage they view names the slot."""
+    from acoss_tpu_torch.utils.profiling import stages
+
+    jfs, desc, full = corpus
+    n = jfs.n_songs
+    fn = _algo().tile_scores
+    out = {}
+    for case in ("fold", "rect"):
+        order, slots = [], {}
+
+        def recording(row, col):
+            ptr = row["chroma"].untyped_storage().data_ptr()
+            order.append(slots.setdefault(ptr, len(slots)))
+            return fn(row, col)
+
+        stages.reset()
+        stages.enabled = True
+        try:
+            if case == "fold":
+                got = sharded_pair_scores_triangular(
+                    recording, desc, n, devices=SLOTS4, col_tile=2)
+            else:
+                got = sharded_pair_scores(
+                    recording, desc, n, make_pair_mesh(SLOTS4, (2, 2)),
+                    col_tile=2)
+        finally:
+            stages.enabled = False
+            counts = dict(stages.count)
+            counters = dict(stages.counters)
+            stages.reset()
+        out[case] = (got, order, counts, counters)
+    return full, out
+
+
+@pytest.mark.parametrize("case", ["fold", "rect"])
+def test_calls_alternate_between_slots(recorded, case):
+    """The calls are enqueued round robin, one a slot a turn (every slot
+    has as many calls here), and the matrices still equal run_pairwise's
+    bit for bit (the whole matrix for the fold, the strict lower triangle
+    for the rectangular sweep)."""
+    full, out = recorded
+    got, order, _, _ = out[case]
+    per = {"fold": 9, "rect": 4}[case]
+    assert order == [0, 1, 2, 3] * per
+    n = full["chroma_qmax"].shape[0]
+    idx = ... if case == "fold" else np.tril_indices(n, -1)
+    for k in full:
+        np.testing.assert_array_equal(got[k][idx], full[k][idx], err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["fold", "rect"])
+def test_mesh_spans_and_counters(recorded, case):
+    """With the stage collector on, every mesh span and counter is
+    recorded: a call a `mesh:enqueue` and a `mesh:calls`, as many as the
+    decomposition implies (fold: 4 slots x 9 blocks x 1 call; 2x2: 4
+    blocks x 4 column tiles), a block a `mesh:gather` and `mesh:blocks`,
+    a restore a slot (two for a rectangular block: its rows and its
+    columns), one `mesh:fold`."""
+    _, out = recorded
+    _, _, counts, counters = out[case]
+    calls, blocks, restores = {"fold": (36, 36, 4),
+                               "rect": (16, 4, 8)}[case]
+    assert counters["mesh:calls"] == counts["mesh:enqueue"] == calls
+    assert counters["mesh:blocks"] == counts["mesh:gather"] == blocks
+    assert counts["mesh:restore"] == restores
+    assert counts["mesh:fold"] == 1
+
+
+def test_fold_equals_the_benchmark_reference():
+    """24 songs rendered by the benchmark's generator, folded over 4 CPU
+    slots (column tiles of 2: chunks of 4 songs, 8 of them padding), equal
+    the benchmark's plain reference (`portbench/reference/serra09.py`,
+    which shares no code with the port) for every pair: its strict lower
+    triangle, mirrored, with a zero diagonal."""
+    sys.path.insert(0, str(REPO))
+    from portbench import corpus as C
+    from portbench.reference import serra09 as ref
+
+    cfg = {"algorithm": "Serra09", "params": {
+        "chroma_type": "hpcp", "oti": True, "kappa": 0.095, "m": 9,
+        "downsample_fac": 40, "pad_to_multiple": 64, "do_ssms": False},
+        "corpus": {"kind": "datacos", "n_cliques": 7, "clique_size": 3,
+                   "n_distractors": 3, "n_states": 12,
+                   "base_duration": 60.0, "beat_period": 30.0}}
+    songs_of = C.Corpus(cfg, 7)
+    n = songs_of.n_songs
+    songs = songs_of.raw(np.arange(n))
+    algo = C.algorithm(cfg)
+    desc = algo.extract_descriptors(C.feature_set(songs, songs_of.labels),
+                                    device="cpu")
+    got = sharded_pair_scores_triangular(algo.tile_scores, desc, n,
+                                         devices=SLOTS4, col_tile=2)
+    d = ref.descriptors(songs, songs_of.width, torch.device("cpu"))
+    for k, v in ref.serra09_tile(d, d).items():
+        low = np.tril(v.numpy(), -1)
+        assert got[k].shape == (n, n) == (24, 24)
+        np.testing.assert_array_equal(got[k], low + low.T, err_msg=k)
+        assert not np.diag(got[k]).any() and np.any(low)
+
+
 @pytest.mark.parametrize("n_devices", [1, 2, 4, 8])
 def test_fold_balance(n_devices):
     """Every device owns exactly 2D+1 blocks, and together they cover the
