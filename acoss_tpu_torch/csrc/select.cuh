@@ -81,7 +81,10 @@ __device__ int block_kth_key(const int* line, int n, int k, int* red) {
 // Bisection between the smallest key and a bound from the lanes' J
 // smallest keys; once a midpoint has exactly k keys at or below it, the
 // answer is the largest of those, so the search stops there. Same value
-// in every lane.
+// in every lane. That largest key is found by testing key < mid + 1
+// (mid < hi <= top: no overflow), the keys of key <= mid, so that the
+// compiler does not keep every predicate of the count for the exit (two
+// more bit operations a key each step).
 template <int K, int J = 2>
 __device__ __forceinline__ unsigned warp_kth(const unsigned (&key)[K], int k,
                                              unsigned top) {
@@ -116,10 +119,11 @@ __device__ __forceinline__ unsigned warp_kth(const unsigned (&key)[K], int k,
     for (int t = 0; t < K; ++t) cnt += key[t] <= mid;
     cnt = __reduce_add_sync(kFull, cnt);
     if (cnt == k) {
+      const unsigned above = mid + 1;
       unsigned best = 0;
 #pragma unroll
       for (int t = 0; t < K; ++t)
-        if (key[t] <= mid) best = max(best, key[t]);
+        if (key[t] < above) best = max(best, key[t]);
       return __reduce_max_sync(kFull, best);
     }
     if (cnt > k) hi = mid; else lo = mid + 1;

@@ -119,6 +119,7 @@ SIGNATURES = {
     "acoss_fused_crp": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
                          _I, _P], _I),
     "acoss_fused_crp_smem": ([_I, _I, _I], ctypes.c_size_t),
+    "acoss_fused_crp_cluster": ([_I, _I, _I], _I),
     # D, l1, l2, B, L, kappa, thr, S, device, stream
     "acoss_binarize": ([_P, _P, _P, _I, _I, _F, _P, _P, _I, _P], _I),
     # W, k, B, n, largest, V, device, stream

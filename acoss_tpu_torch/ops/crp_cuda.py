@@ -18,9 +18,12 @@ wrapper counts kernel launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from acoss_tpu_torch.ops import _build, crp
+from acoss_tpu_torch.utils.profiling import stages
 
 _INF_BITS = 0x7F800000
 _MAX_FINITE_BITS = 0x7F7FFFFF
@@ -126,6 +129,15 @@ def _check_args(X, Y, l1, l2, m: int) -> None:
                          f"{_build.MAX_SMEM} bytes, lines up to 6144)")
 
 
+@functools.cache
+def fused_crp_cluster(L: int, d: int, m: int) -> int:
+    """The size of the thread-block cluster that builds a pair's CRP in one
+    launch with the windowed matrix on chip (1 to 8: lines of up to 512,
+    d up to 16), or 0 when the shape takes the two launches with the
+    windowed matrix in device memory. `csrc/crp.cu` decides."""
+    return _build.library().acoss_fused_crp_cluster(L, d, m)
+
+
 def fused_binary_crp_batch(X: torch.Tensor, Y: torch.Tensor,
                            l1: torch.Tensor, l2: torch.Tensor,
                            kappa: float = 0.095, m: int = 9):
@@ -133,6 +145,8 @@ def fused_binary_crp_batch(X: torch.Tensor, Y: torch.Tensor,
     CSM); the contract of `fused_binary_crp_ref`.
 
     X, Y: (B, L, d) float32; l1, l2: (B,) int32 true frame counts.
+    `cluster_launches` (and the counter `crp:cluster_calls`) counts the
+    calls that took the one-launch cluster kernel.
     """
     if X.device.type == "cpu":
         return fused_binary_crp_ref(X, Y, l1, l2, kappa, m)
@@ -140,21 +154,29 @@ def fused_binary_crp_batch(X: torch.Tensor, Y: torch.Tensor,
     _check_args(X, Y, l1, l2, m)
     B, L, d = X.shape
     dev = X.device
-    # scratch: the windowed matrix (only its valid cells are written) and
-    # the row thresholds
-    W = torch.empty((B, L, L), dtype=torch.float32, device=dev)
-    t_row = torch.empty((B, L), dtype=torch.int32, device=dev)
+    cluster = fused_crp_cluster(L, d, m) > 0
+    W = t_row = None
+    if not cluster:
+        # the two launches' scratch: the windowed matrix (only its valid
+        # cells are written) and the row thresholds
+        W = torch.empty((B, L, L), dtype=torch.float32, device=dev)
+        t_row = torch.empty((B, L), dtype=torch.int32, device=dev)
     S = torch.empty((B, L, L), dtype=torch.uint8, device=dev)
     rc = _build.library().acoss_fused_crp(
         X.data_ptr(), Y.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, L, d,
-        m, kappa, W.data_ptr(), t_row.data_ptr(), S.data_ptr(), dev.index,
+        m, kappa, None if cluster else W.data_ptr(),
+        None if cluster else t_row.data_ptr(), S.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "acoss_fused_crp")
     fused_binary_crp_batch.launches += 1
+    if cluster:
+        fused_binary_crp_batch.cluster_launches += 1
+        stages.add("crp:cluster_calls", 1)
     return S, torch.clamp_min(l1 - m + 1, 0), torch.clamp_min(l2 - m + 1, 0)
 
 
 fused_binary_crp_batch.launches = 0
+fused_binary_crp_batch.cluster_launches = 0
 
 
 def _check_square(name: str, t: torch.Tensor, like: torch.Tensor) -> None:

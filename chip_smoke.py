@@ -494,6 +494,72 @@ def _check_fused(what: str, X, Y, l1, l2):
     return got
 
 
+def _two_launch_crp():
+    """`acoss_fused_crp` of a copy of `csrc/crp.cu` in which every shape
+    takes the two launches, the design the one-launch cluster kernel
+    replaced at lines of up to 512: its yardstick. Built by
+    `scripts/torch_kernel_variants.py` (its `CRP_TWO_LAUNCHES`). Returns
+    fn(X, Y, l1, l2) -> S."""
+    import importlib.util
+
+    from acoss_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_variants",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                     "torch_kernel_variants.py"))
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fn = variants._load(*variants._start_build(
+        tempfile.mkdtemp(dir=_build.BUILD_DIR), "crp_two_launches",
+        variants.CRP_SOURCES, variants.CRP_TWO_LAUNCHES), "acoss_fused_crp")
+
+    def run(X, Y, l1, l2):
+        B, L, _ = X.shape
+        W = torch.empty((B, L, L), dtype=torch.float32, device=X.device)
+        t_row = torch.empty((B, L), dtype=torch.int32, device=X.device)
+        S = torch.empty((B, L, L), dtype=torch.uint8, device=X.device)
+        _build.check(fn(X.data_ptr(), Y.data_ptr(), l1.data_ptr(),
+                        l2.data_ptr(), B, L, X.shape[2], 9, KAPPA,
+                        W.data_ptr(), t_row.data_ptr(), S.data_ptr(),
+                        X.device.index,
+                        torch.cuda.current_stream(X.device).cuda_stream),
+                     "two-launch acoss_fused_crp")
+        return S
+
+    return run
+
+
+def _fused_crp_at_cells(inputs: list) -> None:
+    """The fused CRP at the benchmark cells' calls, a stream tile's B = 256
+    and a mesh call's 1,920 (the tile's pairs repeated), d = 12 and 13:
+    the one-launch kernel == the two launches bit for bit, and both
+    timed."""
+    from acoss_tpu_torch.ops import crp_cuda
+
+    two = _two_launch_crp()
+    for B in (256, 1920):
+        for X, Y, l1, l2 in inputs:
+            n = B // X.shape[0]
+            Xc, Yc = X.repeat(n, 1, 1), Y.repeat(n, 1, 1)
+            l1c, l2c = l1.repeat(n), l2.repeat(n)
+            got = crp_cuda.fused_binary_crp_batch(Xc, Yc, l1c, l2c, KAPPA,
+                                                  9)[0]
+            if not torch.equal(got, two(Xc, Yc, l1c, l2c)):
+                raise AssertionError(f"fused CRP: one launch != two at "
+                                     f"B={B}")
+            del got
+            ms = _cuda_ms(lambda: crp_cuda.fused_binary_crp_batch(
+                Xc, Yc, l1c, l2c, KAPPA, 9), 10)
+            ms2 = _cuda_ms(lambda: two(Xc, Yc, l1c, l2c), 10)
+            _phase("fused_crp", f"B={B} L={X.shape[1]} d={X.shape[2]}: one "
+                   f"launch (cluster of "
+                   f"{crp_cuda.fused_crp_cluster(X.shape[1], X.shape[2], 9)}"
+                   f") {ms:.4f} ms, two launches {ms2:.4f} ms "
+                   f"({ms / ms2:.3f}x), bit-equal")
+
+
 def phase_fused_crp(desc: dict) -> dict:
     from acoss_tpu_torch.benchmarking.algorithms import Serra09
     from acoss_tpu_torch.ops import crp_cuda
@@ -550,14 +616,11 @@ def phase_fused_crp(desc: dict) -> dict:
             4 * d * float((l1.clamp(0, L) + l2.clamp(0, L)).sum())
             + B * L * L + 16 * B,
             (2 * d + 3) * _cells(l1, l2, L) + 12 * _cells(l1e, l2e, L)))
-        # the design's own floor: the windowed matrix's valid cells written
-        # and read once, S written
-        floor_ms = 1e3 * (8 * _cells(l1e, l2e, L) + B * L * L) \
-            / HBM_BYTES_PER_S
         _phase("fused_crp", f"kernel == plain bit for bit, B={X.shape[0]} "
                f"L={X.shape[1]} d={X.shape[2]}: kernel {ms:.3f} ms, "
                f"plain {plain_ms:.3f} ms, bound {bounds[-1][0]:.4f} ms "
-               f"({bounds[-1][1]}), design floor {floor_ms:.4f} ms")
+               f"({bounds[-1][1]})")
+    _fused_crp_at_cells(inputs)
     return _kernel("fused_crp", "crp.cu", "acoss_tpu/ops/crp_pallas.py:57",
                    worst, np.mean([t[0] for t in times]),
                    np.mean([t[1] for t in times]),

@@ -12,9 +12,12 @@ Run from the root of a checkout on a machine with a CUDA device and nvcc.
 Every variant is compiled (all at once) into its own library under --out
 and called through ctypes with the C signatures of `_build.SIGNATURES`.
 For each it prints the mean device ms a launch (CUDA events) at the
-Serra09 main path's shapes: the fused CRP at B=64, L=512, d=12 and 13
-(random features, lengths 260..470), with the device time of each of its
-two kernels from `torch.profiler`; dmax and qmax at B=128, L=512 on
+Serra09 main path's shapes: the fused CRP at B=64, 256 and 1,920, L=512,
+d=12 and 13 (random features, lengths 260..470), with the device time of
+each of its kernels from `torch.profiler` at B=64, and the variants that
+keep its function also at L=128, 200, 256 and 384, B=64 and 256 (lengths
+L/2..L: the bucketed and hybrid sweeps' and serving's narrower lines);
+dmax and qmax at B=128, L=512 on
 bench.py's CRP workload; WCSMSSM at B=64, L=512 (random SSMs and CSM,
 lengths 260..470, K = trunc(0.095 (l1 + l2)), EarlySNF's budget), with
 the device time of its stats and out launches; SW at EarlyFusion's
@@ -59,27 +62,46 @@ TIGHT_LOW = [("unsigned lo = min(__reduce_min_sync(kFull, m[0]), top);",
               "m[0]), top);")]
 SCALAR_STRIP = [("const int vec = L % 4 == 0 &&", "const int vec = L < 0 &&")]
 # (name, [(text in csrc, its replacement)], whether it keeps the function)
+# every shape of the fused CRP to the two launches (W through device
+# memory), the design the one-launch cluster kernel replaced at L <= 512
+CRP_TWO_LAUNCHES = [("  if (L <= 0 || L > kClusterThreads ||",
+                     "  if (true || L > kClusterThreads ||")]
 CRP_VARIANTS = [
     ("as is", [], True),
-    ("bands sized for 2 blocks an SM",
-     [("kBandBlocksPerSm = 4", "kBandBlocksPerSm = 2")], True),
-    ("strips of 8 columns",
-     [("for (int cw = 16; cw", "for (int cw = 8; cw")], True),
-    ("bracket's lower end from the lanes' j-th smallest keys", TIGHT_LOW,
+    ("two launches (W through device memory)", CRP_TWO_LAUNCHES, True),
+    ("clusters of at least 2 blocks",
+     [("for (int C = 1; C <= kMaxCluster;", "for (int C = 2; C <= kMaxCluster;")],
      True),
+    ("clusters of at least 4 blocks",
+     [("for (int C = 1; C <= kMaxCluster;", "for (int C = 4; C <= kMaxCluster;")],
+     True),
+    ("window sums 8 rows at once",
+     [("kWindowRows = 4;", "kWindowRows = 8;")], True),
     ("diagnostic: no row search",
-     [("const unsigned t = warp_kth(key, k, kMaxFiniteBits);\n"
-       "    if (lane == 0) tr[r] = t;",
-       "if (lane == 0) tr[r] = key[0];")], False),
-    ("diagnostic: no CSM",
-     [("for (int j = threadIdx.x; j < ny; j += kThreads) {\n"
-       "    const float* yg",
-       "for (int j = threadIdx.x; j < 0; j += kThreads) {\n"
-       "    const float* yg")], False),
+     [("        const unsigned t = line_kth(l2e, kr, [&](int t) {\n"
+       "          return slab[(lane + 32 * t) * Rp + line];\n        });",
+       "        const unsigned t = slab[lane * Rp + line];")], False),
     ("diagnostic: no column search",
-     [("const unsigned t = warp_kth(key, k, kMaxFiniteBits);\n"
-       "    if (lane == 0) t_col[c] = t;",
-       "if (lane == 0) t_col[c] = key[0];")], False),
+     [("        const unsigned t = line_kth(l1e, kc, [&](int t) {\n"
+       "          return ld_cluster(row[t] + 4u * c * Rp);\n        });",
+       "        const unsigned t = ld_cluster(row[0] + 4u * c * Rp);")], False),
+    ("diagnostic: no CSM",
+     [("  float xy[U];\n#pragma unroll\n  for (int q = 0; q < kRegDims / 4; ++q) {"
+       "\n    if (4 * q >= d) break;",
+       "  float xy[U] = {};\n#pragma unroll\n  for (int q = 0; q < kRegDims / 4;"
+       " ++q) {\n    if (4 * q >= 0) break;")], False),
+    ("diagnostic: no window sums",
+     [("  for (int q = 1; q < m; ++q)\n#pragma unroll\n    for (int u = 0; u < U;",
+       "  for (int q = 1; q < 1; ++q)\n#pragma unroll\n    for (int u = 0; u < U;"
+       )], False),
+    ("diagnostic: no CRP stores",
+     [("      if (c < L) Sr[c] = (c < l2e) & (v <= t_row) & (v <= tc[cc]);",
+       "      if (c < 0) Sr[c] = (c < l2e) & (v <= t_row) & (v <= tc[cc]);")],
+     False),
+    ("diagnostic: every CRP all zero (launch, cluster start, stores)",
+     [("  if (!(round_k(kappa, l2e) > 0.0f && round_k(kappa, l1e) > 0.0f)) {\n"
+       "    zero_rows(Sb, L, r, C, L);",
+       "  if (true) {\n    zero_rows(Sb, L, r, C, L);")], False),
 ]
 DMAX_VARIANTS = [
     ("as is", [], True),
@@ -311,9 +333,12 @@ PRED3_VARIANTS = [
 SW_VARIANTS = [(name, PRED3_OCCUPANCY + subs, exact)
                for name, subs, exact in PRED3_VARIANTS]
 QMAX_UNEQ_VARIANTS = SW_VARIANTS
-CRP_SOURCES = ("crp.cu", "select.cuh")
-DMAX_SOURCES = ("alignment.cu",)
-WCSMSSM_SOURCES = ("knn.cu", "select.cuh")
+CRP_SOURCES = ("crp.cu", "select.cuh", "device.cuh")
+# (L, B): the narrower lines the variants that keep the function are also
+# timed at, at B/4 and B pairs
+CRP_NARROW = ((128, 256), (200, 256), (256, 256), (384, 256))
+DMAX_SOURCES = ("alignment.cu", "device.cuh")
+WCSMSSM_SOURCES = ("knn.cu", "select.cuh", "device.cuh")
 
 
 def _start_build(out: str, name: str, sources, subs):
@@ -534,6 +559,76 @@ KINDS = {"crp": (CRP_VARIANTS, CRP_SOURCES),
          "knn_mask": (KNN_MASK_VARIANTS, WCSMSSM_SOURCES)}
 
 
+def _crp_inputs(dev, L: int, B: int, lo: int, hi: int, seed: int) -> list:
+    """[X, Y, l1, l2] at d = 12 and 13: standard normal features, lengths
+    lo .. hi."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in (12, 13):
+        l1, l2 = (rng.integers(lo, hi + 1, B).astype(np.int32) for _ in "ab")
+        X, Y = (rng.standard_normal((B, L, d)).astype(np.float32)
+                for _ in "ab")
+        out.append([torch.from_numpy(a).to(dev) for a in (X, Y, l1, l2)])
+    return out
+
+
+def _crp(builds, dev) -> None:
+    """Check and time each fused CRP variant at L=512, B=64, 256 and 1,920
+    (lengths 260..470), with the split of its launches at B=64; those that
+    keep the function also at the narrower lines of the bucketed and
+    hybrid sweeps and serving (`CRP_NARROW`, lengths L/2..L)."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    wide = _crp_inputs(dev, 512, 64, 260, 470, 1)
+    narrow = {L: _crp_inputs(dev, L, B, L // 2, L, L)
+              for L, B in CRP_NARROW}
+    for name, _, exact in CRP_VARIANTS:
+        fn = _load(*builds["crp", name], "acoss_fused_crp")
+
+        def fused(X, Y, l1, l2):
+            B, L, d = X.shape
+            W = torch.empty((B, L, L), dtype=torch.float32, device=dev)
+            t_row = torch.empty((B, L), dtype=torch.int32, device=dev)
+            S = torch.empty((B, L, L), dtype=torch.uint8, device=dev)
+            _build.check(fn(X.data_ptr(), Y.data_ptr(), l1.data_ptr(),
+                            l2.data_ptr(), B, L, d, 9, 0.095,
+                            W.data_ptr(), t_row.data_ptr(), S.data_ptr(),
+                            dev.index, stream), name)
+            return S
+
+        def check(a):
+            if exact and not torch.equal(
+                    fused(*a), crp_cuda.fused_binary_crp_ref(*a, 0.095, 9)[0]):
+                raise AssertionError(f"fused CRP {name}: != plain at "
+                                     f"{tuple(a[0].shape)}")
+
+        times = {}
+        for a in wide:
+            check(a)
+            for n in (1, 4, 30):    # B = 64, 256 (a stream tile), 1,920
+                big = [t.repeat(n, *[1] * (t.ndim - 1)) for t in a]
+                times.setdefault(64 * n, []).append(
+                    _ms(lambda: fused(*big), 10 if n > 1 else 30))
+                del big
+        split = _kernel_split(lambda: fused(*wide[0]))
+        print(f"fused CRP, {name}, L=512: " + "; ".join(
+            f"B={B} d=12 {t[0]:.4f} ms, d=13 {t[1]:.4f} ms"
+            for B, t in times.items())
+            + f"; B=64 d=12 by kernel: {split}", flush=True)
+        if not exact:
+            continue
+        for L, B in CRP_NARROW:
+            row = []
+            for a in narrow[L]:
+                check(a)
+                for n in (B // 4, B):
+                    sub = [t[:n] for t in a]
+                    row.append((n, a[0].shape[2], _ms(lambda: fused(*sub))))
+            print(f"fused CRP, {name}, L={L} (cluster of "
+                  f"{crp_cuda.fused_crp_cluster(L, 12, 9)} as is): "
+                  + "; ".join(f"B={n} d={d} {ms:.4f} ms" for n, d, ms in
+                              sorted(row)), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/kernel_variants")
@@ -557,38 +652,9 @@ def main() -> int:
         _knn_mask(builds, dev)
     if "wcsmssm" in kinds:
         _wcsmssm(builds, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rng = np.random.default_rng(1)
-    B, L = 64, 512
-    crp_in = []
-    for d in (12, 13):
-        l1, l2 = (rng.integers(260, 471, B).astype(np.int32) for _ in "ab")
-        X, Y = (rng.standard_normal((B, L, d)).astype(np.float32)
-                for _ in "ab")
-        crp_in.append([torch.from_numpy(a).to(dev) for a in (X, Y, l1, l2)])
-    for name, _, exact in CRP_VARIANTS if "crp" in kinds else []:
-        fn = _load(*builds["crp", name], "acoss_fused_crp")
-
-        def fused(X, Y, l1, l2):
-            W = torch.empty((B, L, L), dtype=torch.float32, device=dev)
-            t_row = torch.empty((B, L), dtype=torch.int32, device=dev)
-            S = torch.empty((B, L, L), dtype=torch.uint8, device=dev)
-            _build.check(fn(X.data_ptr(), Y.data_ptr(), l1.data_ptr(),
-                            l2.data_ptr(), B, L, X.shape[2], 9, 0.095,
-                            W.data_ptr(), t_row.data_ptr(), S.data_ptr(),
-                            dev.index, stream), name)
-            return S
-
-        times = []
-        for a in crp_in:
-            if exact and not torch.equal(
-                    fused(*a), crp_cuda.fused_binary_crp_ref(*a, 0.095, 9)[0]):
-                raise AssertionError(f"fused CRP {name}: != plain")
-            times.append(_ms(lambda: fused(*a)))
-        split = _kernel_split(lambda: fused(*crp_in[0]))
-        print(f"fused CRP, {name}: d=12 {times[0]:.4f} ms, d=13 "
-              f"{times[1]:.4f} ms, mean {np.mean(times):.4f} ms; d=12 by "
-              f"kernel: {split}", flush=True)
+    if "crp" in kinds:
+        _crp(builds, dev)
+    L = 512
     rng = np.random.default_rng(0)
     m = rng.integers(320, L + 1, 128).astype(np.int32)
     n = rng.integers(320, L + 1, 128).astype(np.int32)

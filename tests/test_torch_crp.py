@@ -101,12 +101,13 @@ def test_fused_ref_degenerate_pairs():
 
 def test_fused_wrapper_on_cpu_is_the_plain_version():
     X, Y, l1, l2 = _features(3, 4, 32, 13)
-    before = crp_cuda.fused_binary_crp_batch.launches
-    got = _port_fused(crp_cuda.fused_binary_crp_batch, X, Y, l1, l2, 0.2, 3)
+    fn = crp_cuda.fused_binary_crp_batch
+    before = (fn.launches, fn.cluster_launches)
+    got = _port_fused(fn, X, Y, l1, l2, 0.2, 3)
     want = _port_fused(crp_cuda.fused_binary_crp_ref, X, Y, l1, l2, 0.2, 3)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert crp_cuda.fused_binary_crp_batch.launches == before
+    assert (fn.launches, fn.cluster_launches) == before
 
 
 @pytest.mark.parametrize("kappa", [0.0, 1.0, 3.0])

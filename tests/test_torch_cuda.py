@@ -142,14 +142,19 @@ def test_aligner_rows_past_limit_raise(dev, name):
         getattr(alignment_cuda, wname)(S, ln, ln, **kw)
 
 
-@pytest.mark.parametrize("L,ties", [(100, False), (512, False),
-                                    (1024, False), (512, True)])
+# line widths of the fused CRP: the one-launch kernel on one block (100,
+# 200; 100 is no multiple of 16: byte stores), on a cluster of 2 (256) and
+# of 8 (512), and the two launches past 512 (520, 1024: 32 keys a lane)
+FUSED_WIDTHS = [100, 200, 256, 512, 520, 1024]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("L", FUSED_WIDTHS)
 @pytest.mark.parametrize("d", [12, 13])
 def test_fused_crp_kernel_bit_equal_to_plain(dev, d, L, ties):
-    """Lengths that are not multiples of 32 (a lane's last keys and a
-    strip cut short), 1024 (32 keys a lane), and a tie-heavy input:
-    features on an integer grid, so that many windowed sums tie at the
-    k-th value."""
+    """Lengths that are not multiples of 32 (a lane's last keys, a slab,
+    a strip cut short), and a tie-heavy input: features on an integer
+    grid, so that many windowed sums tie at the k-th value."""
     rng = np.random.default_rng(d + L + ties)
     B = 8
     l1 = rng.integers(L * 5 // 8, L + 1, B).astype(np.int32)
@@ -166,6 +171,77 @@ def test_fused_crp_kernel_bit_equal_to_plain(dev, d, L, ties):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[0][:2].sum()) == 0 and int(got[0][2:].sum()) > 0
+
+
+@pytest.mark.parametrize("L", [200, 512, 1024])
+@pytest.mark.parametrize("d,m", [(7, 3), (16, 12)])
+def test_fused_crp_kernel_other_widths_bit_equal_to_plain(dev, d, m, L):
+    """Feature widths and windows other than Serra09's, which no kernel
+    has compiled in: the one launch up to 512, the two past it."""
+    rng = np.random.default_rng(d + m + L)
+    B = 6
+    l1 = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    l2 = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    l1[0], l2[1] = 0, L
+    X = rng.standard_normal((B, L, d)).astype(np.float32)
+    Y = rng.standard_normal((B, L, d)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (X, Y, l1, l2)]
+    got = crp_cuda.fused_binary_crp_batch(*args, kappa=0.095, m=m)
+    want = crp_cuda.fused_binary_crp_ref(*args, kappa=0.095, m=m)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[0][0].sum()) == 0 and int(got[0][1:].sum()) > 0
+
+
+def test_fused_crp_kernel_batch_of_240_bit_equal_to_plain(dev):
+    """A mesh call's batch at L = 512 (one cluster a pair): zero lengths,
+    pairs whose rounded k is 0 on either side, full-length pairs and
+    ragged ones, each kind spread over the batch."""
+    rng = np.random.default_rng(240)
+    B, L, d = 240, 512, 13
+    l1 = rng.integers(1, L + 1, B).astype(np.int32)
+    l2 = rng.integers(1, L + 1, B).astype(np.int32)
+    l1[::12], l2[5::12] = 0, 0             # zero lengths
+    l1[1::12], l2[2::12] = 12, 13          # round(0.095 * 4 or 5) == 0
+    l1[3::12] = l2[3::12] = L              # full length
+    l1[4::12], l2[4::12] = L, 9            # l2e == 1: k rounds to 0
+    X = rng.standard_normal((B, L, d)).astype(np.float32)
+    Y = rng.standard_normal((B, L, d)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (X, Y, l1, l2)]
+    got = crp_cuda.fused_binary_crp_batch(*args, kappa=0.095, m=9)
+    want = crp_cuda.fused_binary_crp_ref(*args, kappa=0.095, m=9)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    zero = torch.from_numpy((l1 < 14) | (l2 < 14)).to(dev)
+    per_pair = got[0].sum((1, 2))
+    assert int(per_pair[zero].sum()) == 0 and bool((per_pair[~zero] > 0).all())
+
+
+def test_fused_crp_cluster_launches_by_width(dev):
+    """The shape alone picks the design: a cluster of 8 at L = 512, which
+    the wrapper counts in `cluster_launches` and the `crp:cluster_calls`
+    counter, and the two launches at 1024, which it does not; `launches`
+    counts every call."""
+    from acoss_tpu_torch.utils.profiling import stages
+
+    assert [crp_cuda.fused_crp_cluster(L, 12, 9)
+            for L in FUSED_WIDTHS] == [1, 1, 2, 8, 0, 0]
+    fn = crp_cuda.fused_binary_crp_batch
+    was = stages.enabled
+    stages.enabled = True
+    try:
+        for L, more in ((512, 1), (1024, 0)):
+            X = torch.rand((2, L, 12), device=dev)
+            n = torch.tensor([L, L - 40], dtype=torch.int32, device=dev)
+            before = (fn.launches, fn.cluster_launches,
+                      stages.counters["crp:cluster_calls"])
+            fn(X, X, n, n)
+            torch.cuda.synchronize()
+            assert (fn.launches, fn.cluster_launches,
+                    stages.counters["crp:cluster_calls"]) == (
+                before[0] + 1, before[1] + more, before[2] + more), L
+    finally:
+        stages.enabled = was
 
 
 def test_serra09_tile_kernel_path_equals_plain(dev):
