@@ -6,6 +6,8 @@ sums of fp32-rounded gaps computed in the same order), so the port must
 agree exactly; only the Pallas SW kernel, which reassociates its sums,
 is held within the JAX package's own bound (atol 1e-4)."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

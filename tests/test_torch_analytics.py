@@ -4,13 +4,14 @@ and tempo tables, persistence functions, onset studies, shape DNA and the
 whole `run_coverstats` (summary.json and every CSV), plus the port's CLI
 and its refusal to skip figures silently."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import csv
 import json
 import sys
 
 import numpy as np
 import pytest
-import torch
 
 from acoss_tpu import analytics as jax_analytics
 from acoss_tpu.data import make_synthetic_dataset
@@ -21,17 +22,6 @@ DNA_KW = dict(downsample_fac=4, m=5, dim=64, neigs=10)
 TAGS = {"a": [[("rock", 0.9), ("pop", 0.5)], [("rock", 0.8)]],
         "b": [[("jazz", 0.9)], [("jazz", 0.7), ("blues", 0.3)]],
         "c": [[("rock", 0.9)], [("jazz", 0.9)]]}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small CPU tensors: in a
-    loaded parallel test run more threads only spin (a sweep here took 3 s
-    on its own and 400 s beside five busy workers at the default count)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

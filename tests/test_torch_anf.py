@@ -5,6 +5,8 @@ segment median, the Euclidean-distance `full_scores`, `benchmark()` and
 the CLI, on the JAX package's e2e corpus at its settings (J=5, T=2^10,
 Q=4)."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -6,6 +6,8 @@ win_length=96): `stack_memory`, the descriptors, the tile under both of
 the JAX package's aligner paths (XLA and the Pallas kernels in interpret
 mode), the late SNF, `benchmark()` and the CLI."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import jax

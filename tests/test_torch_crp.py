@@ -2,6 +2,8 @@
 against the JAX package (the fused Pallas kernel in interpret mode, the
 XLA ops of `crp.py` and `segment.py`)."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,8 @@ the card, at the main path's widths (L = 512). Every test here needs a
 CUDA device and skips without one; on the card, run them with
 `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import numpy as np
 import pytest
 import torch

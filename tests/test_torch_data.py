@@ -3,6 +3,8 @@ JAX package's originals: identical synthetic corpora, `.npz` files that
 load in either package, and identical retrieval statistics and CSV rows;
 and its copies of `ops.curvature` and `sparse_gram.compact_shingles`."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import numpy as np

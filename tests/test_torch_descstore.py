@@ -3,6 +3,8 @@ package's: stores written by either package open in the other with
 byte-equal files, the int8 dequant is bit-equal, the precision checks
 agree, and `LazySyntheticCorpus` renders the same songs for any chunking."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import os
 
 import jax.numpy as jnp

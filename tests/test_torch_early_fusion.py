@@ -7,6 +7,8 @@ The corpus is small (8 songs, the scaled configuration of the JAX
 package's own EarlyFusion test: 8-beat blocks of 16 MFCC and 12 chroma
 frames) but not vacuous: every song has at least 30 blocks."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import jax

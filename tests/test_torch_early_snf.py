@@ -7,6 +7,8 @@ The corpus is small (8 songs of 36..59 descriptor rows at
 downsample_fac=4) but its CRPs are not vacuous: every song is longer than
 the 9-frame window and one ssms block."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 import functools
 

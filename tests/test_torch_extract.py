@@ -6,6 +6,8 @@ extraction plus `--merge-shards` bit-identical to its serial run, its
 FeatureSet through the `benchmark` CLI, and the port's copy of the
 placeholder-corpus recipe writing the JAX script's bytes."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import glob
 import importlib.util
 import sys

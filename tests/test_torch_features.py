@@ -6,6 +6,8 @@ of the output's largest magnitude (the two FFT libraries and the matmul
 orders round differently; measured: 1e-7..1e-5); integer outputs (beat
 frames, key, mode) are equal; the numpy copies are bit-equal."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import numpy as np
 import pytest
 import torch
@@ -186,8 +188,22 @@ def test_mfcc_librosa_matches_jax(signals, name):
 
 @pytest.mark.parametrize("fn", ["chroma_stft", "cqt", "chroma_cqt",
                                 "chroma_cens", "chroma_cqt_processed"])
-def test_chroma_family_matches_jax(signals, fn):
+def test_chroma_family_matches_jax(signals, fn, monkeypatch):
+    """chroma_cqt_processed's kNN smoothing takes each frame's 10 most
+    similar frames, a choice that a CQT summed in another order (another
+    MKL thread count) flips at a near tie; so that case holds the port's
+    CQT to the JAX package's, then runs the port's smoothing on the JAX
+    CQT."""
     y = signals["chords"]
+    if fn == "chroma_cqt_processed":
+        port_cqt = chroma.cqt
+
+        def cqt(y, sr, hop_length, device):
+            want = np.asarray(jax_chroma.cqt(y, sr, hop_length))
+            _close(port_cqt(y, sr, hop_length, device=device), want)
+            return want
+
+        monkeypatch.setattr(chroma, "cqt", cqt)
     _close(getattr(chroma, fn)(y, device="cpu"), getattr(jax_chroma, fn)(y))
 
 

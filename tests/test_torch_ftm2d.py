@@ -4,6 +4,8 @@ CPU: the numpy copies it carries (`sync_agg`, `fix_frames`, `chrompwr_np`,
 `full_scores`, `benchmark(FTM2D)` and the CLI, on the JAX package's e2e
 corpus (20 songs, 8 cliques of 2 + 4 distractors)."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import jax.numpy as jnp

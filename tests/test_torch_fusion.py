@@ -3,6 +3,8 @@ selection kernels (`ops.crp_cuda`) against the JAX package on the CPU:
 the XLA ops of `acoss_tpu.ops.fusion`, and the Pallas kernels of
 `acoss_tpu.ops.crp_pallas` in interpret mode."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,8 @@ peaked emissions, the sticky chord prior or Dirichlet-random transitions,
 7, 25 and 32 states, songs of 1, 2, L - 1, L, L + 1, 3L + 5 and 6,000
 frames at two chunk lengths L."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

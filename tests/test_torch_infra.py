@@ -4,6 +4,8 @@ CPU: a directory of the reference's per-track .h5 files (`data.h5io` and
 (`utils.profiling`, `--stage-times`, `--profile`), the logger and
 `ErrorFile` (`utils.logging`), and the configuration tree."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 import json
 import logging as _logging
@@ -19,17 +21,6 @@ from acoss_tpu_torch import cli, config
 from acoss_tpu_torch.data import make_synthetic_dataset
 from acoss_tpu_torch.data.h5io import feature_set_from_h5_dir
 from acoss_tpu_torch.utils import ErrorFile, get_logger, profiling, timeit
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small CPU tensors: in a
-    loaded parallel test run more threads only spin (a sweep here took 3 s
-    on its own and 400 s beside five busy workers at the default count)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

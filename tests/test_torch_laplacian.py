@@ -12,6 +12,8 @@ the stages are held where they are deterministic, and the end-to-end MAP
 within a bound set from the JAX package's own spread over k-means keys.
 """
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import jax

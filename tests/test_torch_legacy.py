@@ -3,6 +3,8 @@ the JAX package's: the numpy CRP math must be identical (the same numpy
 code), and the cover distances, which go through each package's
 single-pair qmax / dmax, equal for equal and unequal gaps."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import numpy as np
 import pytest
 

@@ -6,6 +6,8 @@ port's on a repeated CPU device. The port is within atol 1e-6 of JAX (the
 tolerance of `test_torch_serra09.py`) and bit-equal to its own
 `run_pairwise`."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import os
 import socket
 import subprocess
@@ -33,15 +35,6 @@ from acoss_tpu_torch.parallel import mesh
 
 REPO = Path(__file__).resolve().parent.parent
 CPU8 = [torch.device("cpu")] * 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: in a loaded parallel test run more only spin."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _algo():

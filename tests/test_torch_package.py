@@ -1,6 +1,8 @@
 """Package-level properties of the port: it imports neither JAX nor the
 JAX package, and its kernel build fails loudly without nvcc."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import json
 import os
 import subprocess

@@ -4,11 +4,12 @@ the unsharded sweep (`.npz`, memmap and hybrid-panel partials), partials
 crossing between the packages both ways, the one-shot-scorer rule, and the
 CLI's shard-set validation."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import shutil
 
 import numpy as np
 import pytest
-import torch
 
 from acoss_tpu.benchmarking.algorithms import Serra09 as JaxSerra09
 from acoss_tpu.data import make_synthetic_dataset
@@ -22,17 +23,6 @@ from acoss_tpu_torch.data.descstore import extract_streamed
 from acoss_tpu_torch.parallel import (assign_block_rows, merge_partials,
                                       run_process_shard,
                                       run_process_shard_hybrid)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small CPU tensors: in a
-    loaded parallel test run more threads only spin (a sweep here took 3 s
-    on its own and 400 s beside five busy workers at the default count)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

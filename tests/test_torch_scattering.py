@@ -2,6 +2,8 @@
 against the JAX package on the CPU (`acoss_tpu.ops.resize`,
 `.scattering`, `.ssm_features`)."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import os
 
 import jax.numpy as jnp

@@ -4,6 +4,8 @@ every kernel's plain version) and the retrieval metrics, on a planted-clique
 corpus whose songs are long enough (30 s base duration) that the CRPs are
 not vacuous."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import jax

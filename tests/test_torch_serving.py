@@ -5,12 +5,13 @@ JAX serving tests' contract (ranking, persistence, quantization, padding,
 the CLI, parameter drift, atomic save), the parameter snapshot of every
 algorithm class, and indexes crossing between the packages both ways."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import json
 import warnings
 
 import numpy as np
 import pytest
-import torch
 
 from acoss_tpu import serving as jax_serving
 from acoss_tpu.benchmarking.algorithms import ALL_ALGORITHMS as JAX_ALGOS
@@ -22,17 +23,6 @@ from acoss_tpu_torch.benchmarking.algorithms import EarlySNF, Serra09
 from acoss_tpu_torch.benchmarking.harness import run_pairwise
 from acoss_tpu_torch.data import FeatureSet
 from acoss_tpu_torch.serving import CoverIndex, _algo_params, _quantize_desc
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's small CPU tensors: in a
-    loaded parallel test run more threads only spin (a sweep here took 3 s
-    on its own and 400 s beside five busy workers at the default count)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_fs(fs) -> FeatureSet:

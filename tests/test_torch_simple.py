@@ -4,6 +4,8 @@ median, the tile scores, the asymmetric full-grid sweep (plain and
 bucketed) and `benchmark(Simple)`, on the JAX package's e2e corpus at its
 settings (WIN=20, SKIP=10)."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import jax

@@ -5,6 +5,8 @@ that runs it. (On the CPU the slabs are not pinned and no event is
 recorded; the card tests in `test_torch_cuda.py` run the non-blocking
 copy.)"""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import numpy as np
 import pytest
 import torch
@@ -120,8 +122,8 @@ def test_stager_counts_one_copy_a_fetch(store, stages):
     assert stages.count["store:read"] == stages.count["store:h2d"] == 3
 
 
-def test_cpu_streamed_sweep_keeps_the_upload_path(store, monkeypatch):
-    """On a CPU device the streamed sweep uploads its tiles as on a card,
+def test_cpu_streamed_sweep_stages_every_tile(store, monkeypatch):
+    """On a CPU device the streamed sweep fetches every tile as on a card,
     through the stager (one fetch a `sweep:tile` and one a `sweep:row`,
     never `_upload`), and its matrices are those of the device-resident
     sweep over the same store."""

@@ -7,6 +7,8 @@ resize, `benchmark()` and the CLI. Sizes follow `tests/test_struct.py`
 (its 14-song corpus, wins_per_block=5, K=5, niters=5, PAD_LEN=128,
 final_size=64, J=3, L=4, tempogram_win=96)."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 
 import jax.numpy as jnp
@@ -26,11 +28,14 @@ from acoss_tpu.ops import crp as jax_crp
 from acoss_tpu.ops import sparse_gram as jax_sparse_gram
 from acoss_tpu.ops import structure as jax_structure
 from acoss_tpu_torch import cli
+from acoss_tpu_torch.benchmarking import harness
 from acoss_tpu_torch.benchmarking.algorithms import (ALL_ALGORITHMS,
                                                      StrucFTM2D,
                                                      StrucScattering,
                                                      StrucShingles,
                                                      struct_common)
+from acoss_tpu_torch.benchmarking.evaluation import (eval_statistics,
+                                                     write_results_csv)
 from acoss_tpu_torch.benchmarking.harness import benchmark, run_pairwise
 from acoss_tpu_torch.data import FeatureSet
 from acoss_tpu_torch.ops import crp, sparse_gram, structure
@@ -476,13 +481,29 @@ def test_benchmark_matches_jax(corpus, family, tmp_path):
 def test_cli_struc_on_cpu(corpus, tmp_path, monkeypatch, capsys, name):
     """Every Struc class runs from the CLI on the CPU (at class defaults:
     PAD_LEN 2000, a 512^2 scattering, 50 k-means restarts), by NAME or by
-    class name."""
+    class name. StrucLaplacian's NAME, StructureLaplacian, names the class
+    whose whole run is the StrucLaplacian case's, so the alias case stubs
+    `benchmark` and checks what the CLI hands it and writes."""
     cls = ALL_ALGORITHMS.get(name) or next(
         c for c in ALL_ALGORITHMS.values() if c.__name__ == name)
     assert cls.__name__ == name or cls.NAME == name
     fs = corpus.subset(np.arange(2))
     fs.save(str(tmp_path / "synth.npz"))
     monkeypatch.chdir(tmp_path)
+    if cls.__name__ != name:
+        calls = []
+
+        def stub(algo, feats, *, results_csv, device, **kw):
+            assert type(algo) is cls and device == "cpu"
+            assert list(feats.labels) == list(fs.labels)
+            calls.append(results_csv)
+            stats = {}
+            for k in cls.SIMILARITY_TYPES:
+                stats[k] = eval_statistics(np.eye(2), feats.labels)
+                write_results_csv(results_csv, algo.NAME, k, stats[k])
+            return stats
+
+        monkeypatch.setattr(harness, "benchmark", stub)
     rc = cli.main(["benchmark", "-a", name, "-d", "synth.npz", "-s", "st",
                    "--device", "cpu", "--no-checkpoint"])
     assert rc == 0
@@ -491,6 +512,8 @@ def test_cli_struc_on_cpu(corpus, tmp_path, monkeypatch, capsys, name):
     assert [r.split(",")[0] for r in rows[1:]] == [
         f"{cls.NAME}_{k}" for k in cls.SIMILARITY_TYPES]
     assert all(0 <= float(r.split(",")[4]) <= 1 for r in rows[1:])
+    if cls.__name__ != name:
+        assert calls == ["results_st.csv"]
 
 
 def test_registry_holds_all_twelve_classes():

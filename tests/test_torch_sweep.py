@@ -12,6 +12,8 @@ of the two songs' (positive) descriptors: exact in fp32, independent of
 the order of operations and of trailing zero padding, and symmetric, so
 every engine and both packages must agree to the bit."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import dataclasses
 import os
 

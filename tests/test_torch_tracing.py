@@ -2,6 +2,8 @@
 CPU: nesting and self time, counters, the off path, the profiler ranges,
 threads, and the spans of a streamed sweep from an int8 store."""
 
+from tests import _torch_threads  # noqa: F401  (caps thread pools)
+
 import json
 import os
 import sys
