@@ -11,15 +11,19 @@
   row), binarized without a window.
 
 A (bi x bj) tile of the pair grid builds all its binary CRPs in one
-batched call per channel and runs ONE qmax and ONE dmax call over the
-nf x bi x bj stacked CRPs (the channels share the alignment batch). On a
-CUDA tile with 0 < kappa < 1 the chroma and mfcc CRPs come from the fused
-CUDA kernel and the ssms CRPs from the matrix binarizer kernel
-(`ops.crp_cuda`); otherwise from the plain per-pair ops of `ops.crp`,
-the split the JAX package makes between its Pallas and XLA paths.
+batched call per channel. On a CUDA tile with 0 < kappa < 1 every launch
+is a hand-written kernel: the pairs' operands in one (`ops.serra09_cuda`),
+the chroma and mfcc CRPs in the fused kernel and the ssms CRPs in the
+matrix binarizer (`ops.crp_cuda`), one qmax and one dmax call on each
+channel's CRPs where its call left them, and the normalised scores in one
+(`ops.serra09_cuda`); otherwise the plain per-pair ops of `ops.crp` build
+the CRPs and ONE qmax and ONE dmax call runs over the nf x bi x bj stacked
+CRPs, the split the JAX package makes between its Pallas and XLA paths.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -32,7 +36,18 @@ from acoss_tpu_torch.ops.crp_cuda import (binarize_matrix_batch,
                                           fused_binary_crp_batch,
                                           fused_binary_crp_ref)
 from acoss_tpu_torch.ops.segment import uniform_downsample_batch
+from acoss_tpu_torch.ops.serra09_cuda import (pair_operands_batch,
+                                              pair_operands_ref,
+                                              scores_epilogue_batch,
+                                              scores_epilogue_ref)
 from acoss_tpu_torch.ops.ssm_features import build_ssms_device
+
+
+@functools.cache
+def _side_stream(index: int) -> torch.cuda.Stream:
+    """A second stream of card `index`: a tile aligns its first channel's
+    CRPs there while the current stream aligns the other channels'."""
+    return torch.cuda.Stream(device=index)
 
 
 def global_chroma(chroma: np.ndarray) -> np.ndarray:
@@ -113,16 +128,30 @@ class Serra09(CoverAlgorithm):
                 self.ssm_res, device=device)
         return desc
 
+    def _oti(self, row: dict, col: dict) -> torch.Tensor | None:
+        """(bi, bj) int64: the shift that rolls each row song's chroma
+        towards each column song, or None without OTI."""
+        if not self.oti:
+            return None
+        return crp.get_oti(row["gchroma"].unsqueeze(1),
+                           col["gchroma"].unsqueeze(0))
+
     def _rolled_chroma(self, row: dict, col: dict) -> torch.Tensor:
         """(bi, bj, L, 12): each row song's chroma, OTI-rolled towards each
         column song."""
         bi, bj = row["length"].shape[0], col["length"].shape[0]
         X = row["chroma"][:, None].expand(
             (bi, bj) + row["chroma"].shape[1:])
-        if not self.oti:
-            return X
-        oti = crp.get_oti(row["gchroma"][:, None], col["gchroma"][None])
-        return crp.transpose_chroma(X, oti)
+        oti = self._oti(row, col)
+        return X if oti is None else crp.transpose_chroma(X, oti)
+
+    def _operands(self, row: dict, col: dict, operands_fn):
+        """The fused CRP's operands of every pair of the tile from
+        `operands_fn` (the prep kernel's wrapper or its plain version):
+        (Xc, Yc, Xm, Ym, l1, l2)."""
+        return operands_fn(row["chroma"], col["chroma"], row["mfcc"],
+                           col["mfcc"], row["length"], col["length"],
+                           self._oti(row, col))
 
     def _pair_crps(self, row: dict, col: dict):
         """Binary CRPs of every pair of the tile from the plain per-pair
@@ -151,45 +180,31 @@ class Serra09(CoverAlgorithm):
             l2e)
         return (Bc, Bm, Bs), l1e, l2e
 
-    def _tile_crps_fused(self, row: dict, col: dict, crp_fn,
-                         binarize_fn=binarize_matrix_batch):
+    def _tile_crps_fused(self, row: dict, col: dict, crp_fn):
         """All (bi x bj) binary CRPs of the chroma (OTI-rolled) and mfcc
-        channels from `crp_fn` (the fused kernel's wrapper or its plain
-        version) and, with `do_ssms`, of the ssms channel from the Gram
-        CSMs through `binarize_fn` (the matrix binarizer's wrapper or its
-        plain version); the same structure as `_pair_crps`."""
+        channels from the plain pair operands through `crp_fn` (the fused
+        kernel's plain version, or a caller's stand-in) and, with
+        `do_ssms`, of the ssms channel from the Gram CSMs through the
+        matrix binarizer's plain version; the same structure as
+        `_pair_crps`."""
         bi, bj = row["length"].shape[0], col["length"].shape[0]
         L = row["chroma"].shape[1]
-        l1 = row["length"].repeat_interleave(bj)
-        l2 = col["length"].repeat(bi)
-        ar = torch.arange(L, device=l1.device)
+        Xc, Yc, Xm, Ym, l1, l2 = self._operands(row, col, pair_operands_ref)
 
-        def crps(X, Y, centered=False):
-            Xf = X.reshape((bi * bj,) + X.shape[2:])
-            Yf = Y.expand((bi, bj) + Y.shape[2:]).reshape(Xf.shape)
-            if centered:
-                # the per-pair shared origin of `crp.get_csm_centered` (the
-                # row song's first frame), zero past the lengths
-                c = Xf[:, :1]
-                Xf = torch.where((ar < l1[:, None])[..., None], Xf - c, 0.0)
-                Yf = torch.where((ar < l2[:, None])[..., None], Yf - c, 0.0)
-            S, l1e, l2e = crp_fn(Xf.contiguous(), Yf.contiguous(), l1, l2,
-                                 self.kappa, self.m)
+        def crps(X, Y):
+            S, l1e, l2e = crp_fn(X, Y, l1, l2, self.kappa, self.m)
             return S.reshape(bi, bj, L, L), l1e, l2e
 
-        Bc, l1e, l2e = crps(self._rolled_chroma(row, col),
-                            col["chroma"][None])
-        Bm, _, _ = crps(row["mfcc"][:, None].expand(
-            (bi, bj) + row["mfcc"].shape[1:]), col["mfcc"][None],
-            centered=True)
+        Bc, l1e, l2e = crps(Xc, Yc)
+        Bm, _, _ = crps(Xm, Ym)
         Bs = (Bc, Bm)
         if self.do_ssms:
             # the 20,736-dim ssms do not fit the fused kernel's shared
             # memory: their CSMs come from one Gram matmul (centred by
             # tile_scores), binarized in one matrix-input call
             D = crp.get_csm_tile(row["ssms"], col["ssms"])
-            Bs += (binarize_fn(D.reshape(bi * bj, L, L).contiguous(), l1e,
-                               l2e, self.kappa).reshape(bi, bj, L, L),)
+            Bs += (binarize_matrix_ref(D.reshape(bi * bj, L, L), l1e, l2e,
+                                       self.kappa).reshape(bi, bj, L, L),)
         return Bs, l1e.reshape(bi, bj), l2e.reshape(bi, bj)
 
     def _center_ssms(self, row: dict, col: dict):
@@ -222,6 +237,50 @@ class Serra09(CoverAlgorithm):
         denom = torch.clamp_min(ml + nl, 1).to(torch.float32)
         return torch.stack([q / denom, d / denom]).reshape(2, nf, bi, bj)
 
+    def _channel_scores(self, row: dict, col: dict,
+                        plain: bool) -> torch.Tensor:
+        """(2, nf, bi, bj) normalised qmax and dmax of the tile's channels,
+        each channel's CRPs scored where its call left them: on a CUDA tile
+        only hand-written kernels launch (the pair operands, the fused CRP
+        and the binarizer, qmax and dmax once a channel, the epilogue).
+        The aligners of the first channel run on a side stream beside the
+        others': one aligner call covers a pair a block in a single wave,
+        so two half-size calls in turn would take ~1.7x the device time of
+        one call over both (PERF.md). `plain=True` replaces every kernel by
+        its plain version, on the tensors' device, in one stream."""
+        operands = pair_operands_ref if plain else pair_operands_batch
+        crp_fn = fused_binary_crp_ref if plain else fused_binary_crp_batch
+        binarize = binarize_matrix_ref if plain else binarize_matrix_batch
+        epilogue = scores_epilogue_ref if plain else scores_epilogue_batch
+        qmax = alignment.qmax_batch if plain else alignment.qmax_batch_best
+        dmax = alignment.dmax_batch if plain else alignment.dmax_batch_best
+        bi, bj = row["length"].shape[0], col["length"].shape[0]
+        Xc, Yc, Xm, Ym, l1, l2 = self._operands(row, col, operands)
+        Sc, l1e, l2e = crp_fn(Xc, Yc, l1, l2, self.kappa, self.m)
+        crps = [(Sc, l1e, l2e), crp_fn(Xm, Ym, l1, l2, self.kappa, self.m)]
+        if self.do_ssms:
+            # the Gram CSMs of the ssms (centred by tile_scores), binarized
+            # in one matrix-input call
+            D = crp.get_csm_tile(row["ssms"], col["ssms"])
+            crps.append((binarize(D.reshape(Sc.shape).contiguous(), l1e,
+                                  l2e, self.kappa), l1e, l2e))
+        if plain:
+            qd = [(qmax(*c), dmax(*c)) for c in crps]
+        else:
+            # every tensor the side stream reads is made on the current
+            # stream before it waits, and the current stream waits for the
+            # side's scores before the epilogue and before any later work
+            # (and so any reuse of this tile's memory)
+            cur = torch.cuda.current_stream(Sc.device)
+            side = _side_stream(Sc.device.index)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                qd = [(qmax(*crps[0]), dmax(*crps[0]))]
+            qd += [(qmax(*c), dmax(*c)) for c in crps[1:]]
+            cur.wait_stream(side)
+        q, d = zip(*qd)
+        return epilogue(q, d, l1e, l2e).reshape(2, len(q), bi, bj)
+
     def _channels(self) -> list:
         return ["chroma", "mfcc"] + (["ssms_scatter"] if self.do_ssms
                                      else [])
@@ -229,29 +288,29 @@ class Serra09(CoverAlgorithm):
     def tile_scores(self, row: dict, col: dict, plain: bool = False) -> dict:
         """Scores of every (row song, column song) pair of the tile.
 
-        On a CUDA tile with 0 < kappa < 1 the CRPs come from the fused
-        kernel (and the matrix binarizer for ssms) and the aligners run
-        their kernels; otherwise the plain per-pair CRP ops feed the
-        `*_best` aligners. `plain=True` takes the kernel path's
-        composition with every kernel replaced by its plain PyTorch
-        version, on the tensors' device: the reference the kernel path is
-        checked against.
+        On a CUDA tile with 0 < kappa < 1 only hand-written kernels launch
+        (`_channel_scores`); otherwise the plain per-pair CRP ops feed the
+        `*_best` aligners. `plain=True` builds the kernel path's CRPs with
+        every kernel replaced by its plain PyTorch version, on the
+        tensors' device, and scores them stacked: the reference the kernel
+        path is checked against.
         """
         if self.do_ssms:
             row, col = self._center_ssms(row, col)
-        fused = 0.0 < self.kappa < 1.0 and (plain or row["chroma"].is_cuda)
-        if fused:
-            Bs, l1e, l2e = self._tile_crps_fused(
-                row, col,
-                fused_binary_crp_ref if plain else fused_binary_crp_batch,
-                binarize_matrix_ref if plain else binarize_matrix_batch)
+        fused = 0.0 < self.kappa < 1.0
+        if fused and row["chroma"].is_cuda and not plain:
+            qd = self._channel_scores(row, col, plain=False)
         else:
-            Bs, l1e, l2e = self._pair_crps(row, col)
-        L = Bs[0].shape[-1]
-        qd = self._scores(torch.cat([B.reshape(-1, L, L) for B in Bs]),
-                          l1e, l2e, plain)
-        out = {}
-        for k, name in enumerate(self._channels()):
-            out[f"{name}_qmax"] = qd[0, k]
-            out[f"{name}_dmax"] = qd[1, k]
-        return out
+            if fused and plain:
+                Bs, l1e, l2e = self._tile_crps_fused(row, col,
+                                                     fused_binary_crp_ref)
+            else:
+                Bs, l1e, l2e = self._pair_crps(row, col)
+            L = Bs[0].shape[-1]
+            qd = self._scores(torch.cat([B.reshape(-1, L, L) for B in Bs]),
+                              l1e, l2e, plain)
+        names = self._channels()
+        flat = qd.flatten(0, 1).unbind()     # q of each channel, then d
+        return {f"{name}_{kind}": flat[i * len(names) + k]
+                for k, name in enumerate(names)
+                for i, kind in enumerate(("qmax", "dmax"))}

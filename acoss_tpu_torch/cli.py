@@ -39,7 +39,8 @@ takes R * C visible cards, and a device that names one device (`cpu`,
 (`utils.profiling.stages`: each span's total and self seconds, calls,
 milliseconds a call and parent, such as `sweep:tile` under no parent and
 `score:tile` and `store:*` under it) and its counters (`store:h2d_copies`,
-`store:h2d_bytes`, and on a card's streamed sweep `store:stage_waits`);
+`store:h2d_bytes`, on a card's streamed sweep `store:stage_waits`, and on
+a card's Serra09 tiles `crp:cluster_calls` and `score:prep_calls`);
 `--profile LOGDIR` writes a `torch.profiler` trace in which every span is
 a range of the same name beside the kernels, with its args (`ti=3 tj=1`).
 `-d` is a FeatureSet .npz or a directory of the reference's per-track .h5

@@ -105,6 +105,15 @@ __device__ __forceinline__ float round_k(float kappa, int len) {
   return rintf(__fmul_rn(kappa, (float)len));
 }
 
+// The pair's effective lengths as the wrapper returns them, max(l - m + 1,
+// 0) (not cut at L), so that no torch op computes them after the launch.
+__device__ __forceinline__ void write_lengths(const int* l1, const int* l2,
+                                              int m, int b, int* l1e_out,
+                                              int* l2e_out) {
+  l1e_out[b] = max(l1[b] - m + 1, 0);
+  l2e_out[b] = max(l2[b] - m + 1, 0);
+}
+
 constexpr int kRegDims = 16;   // feature dims a thread keeps in registers
 // blocks of the band kernel an SM should hold (its searches are latency
 // bound); a taller band is taken only while this many still fit
@@ -150,7 +159,8 @@ __global__ void __launch_bounds__(kThreads)
 band_kernel(const float* __restrict__ X, const float* __restrict__ Y,
             const int* __restrict__ l1, const int* __restrict__ l2, int L,
             int d_, int m, int rb, float kappa, float* __restrict__ W,
-            unsigned* __restrict__ t_row) {
+            unsigned* __restrict__ t_row, int* __restrict__ l1e_out,
+            int* __restrict__ l2e_out) {
   // kD > 0: the feature width, known when compiled (Serra09's 12 and 13)
   const int d = kD > 0 ? kD : d_;
   extern __shared__ float sh[];
@@ -161,6 +171,8 @@ band_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   const int b = blockIdx.y, i0 = blockIdx.x * rb;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int l1e = effective(l1[b], L, m), l2e = effective(l2[b], L, m);
+  if (blockIdx.x == 0 && threadIdx.x == 0) write_lengths(l1, l2, m, b,
+                                                        l1e_out, l2e_out);
   const int nr = l2e > 0 ? min(rb, l1e - i0) : 0;  // rows with keys
   unsigned* tr = t_row + (size_t)b * L + i0;
   // rows outside the valid block hold only +inf: no threshold selects it
@@ -475,12 +487,14 @@ template <int kD, int kM>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 band_strip_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                const int* __restrict__ l1, const int* __restrict__ l2, int L,
-               int d_, int m_, float kappa, uint8_t* __restrict__ S) {
+               int d_, int m_, float kappa, uint8_t* __restrict__ S,
+               int* __restrict__ l1e_out, int* __restrict__ l2e_out) {
   const int d = kD > 0 ? kD : d_, m = kM > 0 ? kM : m_;
   const int C = gridDim.x, r = blockIdx.x;   // the cluster spans x
   const int b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int l1e = effective(l1[b], L, m), l2e = effective(l2[b], L, m);
+  if (r == 0 && tid == 0) write_lengths(l1, l2, m, b, l1e_out, l2e_out);
   uint8_t* Sb = S + (size_t)b * L * L;
   // the same for every block of the cluster: none of them syncs
   if (!(round_k(kappa, l2e) > 0.0f && round_k(kappa, l1e) > 0.0f)) {
@@ -637,14 +651,16 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <int K, int kD>
 int launch(const float* X, const float* Y, const int* l1, const int* l2,
            int B, int L, int d, int m, float kappa, float* W,
-           unsigned* t_row, uint8_t* S, cudaStream_t stream) {
+           unsigned* t_row, uint8_t* S, int* l1e, int* l2e,
+           cudaStream_t stream) {
   const int rb = band_rows(L, d, m), cw = strip_cols(L);
   const size_t bsm = band_smem(L, d, m, rb), ssm = strip_smem(L, cw);
   cudaError_t err = allow_smem(band_kernel<K, kD>, bsm);
   if (err == cudaSuccess) err = allow_smem(strip_kernel<K>, ssm);
   if (err != cudaSuccess) return (int)err;
   band_kernel<K, kD><<<dim3((L + rb - 1) / rb, B), kThreads, bsm,
-                       stream>>>(X, Y, l1, l2, L, d, m, rb, kappa, W, t_row);
+                       stream>>>(X, Y, l1, l2, L, d, m, rb, kappa, W, t_row,
+                                 l1e, l2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   strip_kernel<K><<<dim3((L + cw - 1) / cw, B), kThreads, ssm, stream>>>(
@@ -656,22 +672,25 @@ int launch(const float* X, const float* Y, const int* l1, const int* l2,
 template <int K>
 int launch_k(const float* X, const float* Y, const int* l1, const int* l2,
              int B, int L, int d, int m, float kappa, float* W,
-             unsigned* t_row, uint8_t* S, cudaStream_t stream) {
+             unsigned* t_row, uint8_t* S, int* l1e, int* l2e,
+             cudaStream_t stream) {
   if constexpr (K <= 32) {
     if (d == 12)
-      return launch<K, 12>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S,
-                           stream);
+      return launch<K, 12>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, l1e,
+                           l2e, stream);
     if (d == 13)
-      return launch<K, 13>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S,
-                           stream);
+      return launch<K, 13>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, l1e,
+                           l2e, stream);
   }
-  return launch<K, 0>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, stream);
+  return launch<K, 0>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, l1e, l2e,
+                      stream);
 }
 
 template <int kD, int kM>
 int launch_cluster(const float* X, const float* Y, const int* l1,
                    const int* l2, int B, int L, int d, int m, float kappa,
-                   int C, uint8_t* S, cudaStream_t stream) {
+                   int C, uint8_t* S, int* l1e, int* l2e,
+                   cudaStream_t stream) {
   const size_t smem = cluster_smem(L, d, m, C);
   cudaError_t err = allow_smem(band_strip_kernel<kD, kM>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -688,7 +707,7 @@ int launch_cluster(const float* X, const float* Y, const int* l1,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, band_strip_kernel<kD, kM>, X, Y, l1, l2, L,
-                           d, m, kappa, S);
+                           d, m, kappa, S, l1e, l2e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -718,11 +737,12 @@ size_t acoss_fused_crp_smem(int L, int d, int m) {
 }
 
 // W (B, L, L) float32 and t_row (B, L) are design B's scratch: null when
-// design A takes the shape.
+// design A takes the shape. l1e, l2e (B,) receive max(l1 - m + 1, 0) and
+// max(l2 - m + 1, 0), written by either design's kernels.
 int acoss_fused_crp(const float* X, const float* Y, const int* l1,
                     const int* l2, int B, int L, int d, int m, float kappa,
-                    float* W, unsigned* t_row, uint8_t* S, int device,
-                    void* stream_) {
+                    float* W, unsigned* t_row, uint8_t* S, int* l1e,
+                    int* l2e, int device, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   acoss::DeviceScope scope(device);
   cudaError_t err = scope.error();
@@ -733,24 +753,27 @@ int acoss_fused_crp(const float* X, const float* Y, const int* l1,
   if (C > 0) {   // Serra09's widths and window compiled in
     if (d == 12 && m == 9)
       return launch_cluster<12, 9>(X, Y, l1, l2, B, L, d, m, kappa, C, S,
-                                   stream);
+                                   l1e, l2e, stream);
     if (d == 13 && m == 9)
       return launch_cluster<13, 9>(X, Y, l1, l2, B, L, d, m, kappa, C, S,
-                                   stream);
-    return launch_cluster<0, 0>(X, Y, l1, l2, B, L, d, m, kappa, C, S,
-                                stream);
+                                   l1e, l2e, stream);
+    return launch_cluster<0, 0>(X, Y, l1, l2, B, L, d, m, kappa, C, S, l1e,
+                                l2e, stream);
   }
   if (W == nullptr || t_row == nullptr) return (int)cudaErrorInvalidValue;
   // keys per lane: the first that covers a line of L (16 up to L = 512)
   const int kpl = (L + 31) / 32;
   if (kpl <= 16)
-    return launch_k<16>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, stream);
+    return launch_k<16>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, l1e,
+                        l2e, stream);
   if (kpl <= 32)
-    return launch_k<32>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, stream);
+    return launch_k<32>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, l1e,
+                        l2e, stream);
   if (kpl <= 64)
-    return launch_k<64>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, stream);
+    return launch_k<64>(X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, l1e,
+                        l2e, stream);
   return launch_k<kMaxKeysPerLane>(X, Y, l1, l2, B, L, d, m, kappa, W,
-                                   t_row, S, stream);
+                                   t_row, S, l1e, l2e, stream);
 }
 
 }  // extern "C"

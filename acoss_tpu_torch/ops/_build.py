@@ -115,9 +115,9 @@ SIGNATURES = {
     **{name: (_ALIGNER[0] + [_F] * n_params + _ALIGNER[1], _I)
        for name, n_params in (("acoss_qmax", 1), ("acoss_dmax", 1),
                               ("acoss_qmax_uneq", 2), ("acoss_sw", 4))},
-    # X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, device, stream
+    # X, Y, l1, l2, B, L, d, m, kappa, W, t_row, S, l1e, l2e, device, stream
     "acoss_fused_crp": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P,
-                         _I, _P], _I),
+                         _P, _P, _I, _P], _I),
     "acoss_fused_crp_smem": ([_I, _I, _I], ctypes.c_size_t),
     "acoss_fused_crp_cluster": ([_I, _I, _I], _I),
     # D, l1, l2, B, L, kappa, thr, S, device, stream
@@ -127,6 +127,12 @@ SIGNATURES = {
     # SSMA, SSMB, CSM, l1, l2, K, B, L, Mu, stats, W, device, stream
     "acoss_wcsmssm": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
                       _I),
+    # rc, cc, rm, cm, rlen, clen, oti, bi, bj, L, dc, dm, Xc, Yc, Xm, Ym,
+    # l1, l2, device, stream
+    "acoss_serra09_pair_operands": ([_P] * 7 + [_I] * 5 + [_P] * 6
+                                    + [_I, _P], _I),
+    # qd (a host array of pointers), l1e, l2e, nf, B, out, device, stream
+    "acoss_serra09_scores": ([_P, _P, _P, _I, _I, _P, _I, _P], _I),
     # E, A, T, C, L, scratch, gamma, device, stream
     "acoss_hmm_fb": ([_P, _P, _I, _I, _I, _P, _P, _I, _P], _I),
     "acoss_hmm_fb_scratch": ([_I, _I, _I], ctypes.c_size_t),

@@ -144,7 +144,8 @@ def fused_binary_crp_batch(X: torch.Tensor, Y: torch.Tensor,
     """Batched binary CRPs (mutual kNN of the m-window squared-Euclidean
     CSM); the contract of `fused_binary_crp_ref`.
 
-    X, Y: (B, L, d) float32; l1, l2: (B,) int32 true frame counts.
+    X, Y: (B, L, d) float32; l1, l2: (B,) int32 true frame counts. The
+    kernels write l1e and l2e too, so a call is its launches alone.
     `cluster_launches` (and the counter `crp:cluster_calls`) counts the
     calls that took the one-launch cluster kernel.
     """
@@ -162,17 +163,20 @@ def fused_binary_crp_batch(X: torch.Tensor, Y: torch.Tensor,
         W = torch.empty((B, L, L), dtype=torch.float32, device=dev)
         t_row = torch.empty((B, L), dtype=torch.int32, device=dev)
     S = torch.empty((B, L, L), dtype=torch.uint8, device=dev)
+    lens = torch.empty((2, B), dtype=torch.int32, device=dev)
     rc = _build.library().acoss_fused_crp(
         X.data_ptr(), Y.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, L, d,
         m, kappa, None if cluster else W.data_ptr(),
-        None if cluster else t_row.data_ptr(), S.data_ptr(), dev.index,
+        None if cluster else t_row.data_ptr(), S.data_ptr(),
+        lens.data_ptr(), lens.data_ptr() + 4 * B, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "acoss_fused_crp")
     fused_binary_crp_batch.launches += 1
     if cluster:
         fused_binary_crp_batch.cluster_launches += 1
         stages.add("crp:cluster_calls", 1)
-    return S, torch.clamp_min(l1 - m + 1, 0), torch.clamp_min(l2 - m + 1, 0)
+    l1e, l2e = lens
+    return S, l1e, l2e
 
 
 fused_binary_crp_batch.launches = 0

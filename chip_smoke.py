@@ -81,8 +81,9 @@ sweep); the query path at that geometry (`serving`: 2,016 songs, 150
 cliques x 13 + 66 distractors, in one int8 store; P_0 of cliques 0-15
 held out as 16 queries against a `CoverIndex` of the other 2,000, saved
 and loaded back; the query rows == the sweep's last two block-rows bit for
-bit, every query's top 10 in its clique, qmax / dmax / fused CRP launched
-once / once / twice a corpus tile; cold and warm latency at nq = 1 and 8);
+bit, every query's top 10 in its clique, the Serra09 tile's kernels
+launched as `_serra_launches` says a corpus tile; cold and warm latency
+at nq = 1 and 8);
 and last the extraction layer from audio (`extract`: 16
 placeholder WAVs from `scripts/torch_covers80_placeholder.py` through
 `batch_extract` with the default profile, all 16 extracted with one
@@ -184,7 +185,8 @@ def _run(cmd: list[str]) -> str:
 
 def _wrappers() -> dict:
     """Every kernel wrapper by its name in the kernels line."""
-    from acoss_tpu_torch.ops import alignment_cuda, crp_cuda, hmm_cuda
+    from acoss_tpu_torch.ops import (alignment_cuda, crp_cuda, hmm_cuda,
+                                     serra09_cuda)
 
     return {"qmax": alignment_cuda.qmax_batch_cuda,
             "dmax": alignment_cuda.dmax_batch_cuda,
@@ -194,6 +196,8 @@ def _wrappers() -> dict:
             "binarize": crp_cuda.binarize_matrix_batch,
             "knn_mask": crp_cuda.knn_mask_matrix_batch,
             "wcsmssm": crp_cuda.wcsmssm_batch,
+            "pair_operands": serra09_cuda.pair_operands_batch,
+            "scores_epilogue": serra09_cuda.scores_epilogue_batch,
             "hmm_fb": hmm_cuda.chord_forward_backward}
 
 
@@ -520,9 +524,11 @@ def _two_launch_crp():
         W = torch.empty((B, L, L), dtype=torch.float32, device=X.device)
         t_row = torch.empty((B, L), dtype=torch.int32, device=X.device)
         S = torch.empty((B, L, L), dtype=torch.uint8, device=X.device)
+        lens = torch.empty((2, B), dtype=torch.int32, device=X.device)
         _build.check(fn(X.data_ptr(), Y.data_ptr(), l1.data_ptr(),
                         l2.data_ptr(), B, L, X.shape[2], 9, KAPPA,
                         W.data_ptr(), t_row.data_ptr(), S.data_ptr(),
+                        lens[0].data_ptr(), lens[1].data_ptr(),
                         X.device.index,
                         torch.cuda.current_stream(X.device).cuda_stream),
                      "two-launch acoss_fused_crp")
@@ -719,8 +725,7 @@ def phase_main_path(dev, fs, desc: dict) -> dict:
     algo = Serra09()
     T = _swept_tiles(fs.n_songs, algo.TILE)
     stats, Ds, times, counts = _benchmark_path(
-        "main_path", algo, dev, fs,
-        {"qmax": T, "dmax": T, "fused_crp": 2 * T})
+        "main_path", algo, dev, fs, _serra_launches(T))
     _check_map("main_path", stats, {"": 0.99})
     pairs = fs.n_songs * (fs.n_songs - 1) // 2
     _phase("main_path", f"benchmark(Serra09) on {dev}: {fs.n_songs} songs, "
@@ -1071,8 +1076,7 @@ def phase_serra09_full(dev, fs, desc: dict) -> dict:
     T = _swept_tiles(fs.n_songs, algo.TILE)
     return _sweep_path(
         "serra09_full", algo, dev, fs, desc,
-        {"fused_crp": 2 * T, "binarize": T, "qmax": T, "dmax": T},
-        {"ssms": 0.40, "": 0.99})
+        _serra_launches(T, channels=3), {"ssms": 0.40, "": 0.99})
 
 
 def phase_early_fusion(dev, fs) -> tuple[dict, dict]:
@@ -1129,8 +1133,8 @@ def phase_datacos_geometry(dev) -> dict:
     into memmapped scores (killed about half way, then resumed from its
     ledger; the resumed half profiled for the device's idle share), and
     the hybrid 128-song-panel sweep of the store. Every engine's scores
-    equal its reference bit for bit; every sweep launches qmax, dmax and
-    the fused CRP once, once and twice a tile it sweeps."""
+    equal its reference bit for bit; every sweep launches the Serra09
+    tile's kernels as `_serra_launches` says a tile it sweeps."""
     from torch.profiler import ProfilerActivity, profile
 
     from acoss_tpu_torch.benchmarking import harness
@@ -2031,8 +2035,7 @@ def phase_extract(dev) -> tuple[dict, dict]:
     algo = Serra09()
     T = _swept_tiles(fs.n_songs, algo.TILE)
     stats, _, times, serra = _benchmark_path(
-        "extract_serra09", algo, dev, fs,
-        {"qmax": T, "dmax": T, "fused_crp": 2 * T})
+        "extract_serra09", algo, dev, fs, _serra_launches(T))
     floors = {k: JAX_PLACEHOLDER_MAP[k] - 0.02 for k in JAX_PLACEHOLDER_MAP
               if k.startswith("chroma")}
     for k, floor in floors.items():
@@ -2052,9 +2055,14 @@ def phase_extract(dev) -> tuple[dict, dict]:
 # serving, process shards and coverstats
 # ---------------------------------------------------------------------------
 
-def _serra_launches(tiles: int) -> dict:
-    """qmax, dmax and the fused CRP of `tiles` Serra09 tile calls."""
-    return {"qmax": tiles, "dmax": tiles, "fused_crp": 2 * tiles}
+def _serra_launches(tiles: int, channels: int = 2) -> dict:
+    """The kernels of `tiles` Serra09 tile calls: the pair operands, the
+    fused CRP of chroma and mfcc, qmax and dmax on each channel's CRPs (and
+    the binarizer of the ssms' with `channels` 3), the score epilogue."""
+    return {"pair_operands": tiles, "fused_crp": 2 * tiles,
+            "qmax": channels * tiles, "dmax": channels * tiles,
+            "scores_epilogue": tiles,
+            **({"binarize": tiles} if channels == 3 else {})}
 
 
 def _ms_stats(seconds: list) -> str:
@@ -2102,8 +2110,8 @@ def phase_serving(dev) -> dict:
     store's first 2,000 rows as `load` builds it, saved and loaded back.
     The 16 query rows must equal the last two block-rows of a sweep of the
     whole store bit for bit, each query's top 10 on chroma_qmax must be
-    members of its clique, and a query batch launches qmax, dmax and the
-    fused CRP once, once and twice a corpus tile."""
+    members of its clique, and a query batch launches the Serra09 tile's
+    kernels as `_serra_launches` says a corpus tile."""
     from acoss_tpu_torch.benchmarking import harness
     from acoss_tpu_torch.benchmarking.algorithms import Serra09
     from acoss_tpu_torch.data import LazySyntheticCorpus

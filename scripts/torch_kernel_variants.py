@@ -589,9 +589,11 @@ def _crp(builds, dev) -> None:
             W = torch.empty((B, L, L), dtype=torch.float32, device=dev)
             t_row = torch.empty((B, L), dtype=torch.int32, device=dev)
             S = torch.empty((B, L, L), dtype=torch.uint8, device=dev)
+            lens = torch.empty((2, B), dtype=torch.int32, device=dev)
             _build.check(fn(X.data_ptr(), Y.data_ptr(), l1.data_ptr(),
                             l2.data_ptr(), B, L, d, 9, 0.095,
                             W.data_ptr(), t_row.data_ptr(), S.data_ptr(),
+                            lens[0].data_ptr(), lens[1].data_ptr(),
                             dev.index, stream), name)
             return S
 

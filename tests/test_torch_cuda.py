@@ -15,7 +15,8 @@ from acoss_tpu_torch.benchmarking.algorithms import (ANFScattering,
                                                      Simple, TGAlg)
 from acoss_tpu_torch.convert import descriptors_from_numpy
 from acoss_tpu_torch.data import make_synthetic_dataset
-from acoss_tpu_torch.ops import alignment, alignment_cuda, crp_cuda
+from acoss_tpu_torch.ops import (alignment, alignment_cuda, crp_cuda,
+                                 serra09_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -246,16 +247,165 @@ def test_fused_crp_cluster_launches_by_width(dev):
         stages.enabled = was
 
 
-def test_serra09_tile_kernel_path_equals_plain(dev):
-    fs = make_synthetic_dataset(n_cliques=4, clique_size=2, seed=0,
-                                base_duration=300.0, beat_period=30.0)
-    algo = Serra09()
-    d = descriptors_from_numpy(algo.extract_descriptors(fs, device=dev),
-                               dev)
-    got = algo.tile_scores(d, d)
-    want = algo.tile_scores(d, d, plain=True)
+@pytest.mark.parametrize("L", [512, 1024])
+def test_fused_crp_writes_the_effective_lengths(dev, L):
+    """Both designs (the cluster kernel at 512, the two launches at 1024)
+    write l1e = max(l1 - m + 1, 0) and l2e likewise, the wrapper launching
+    nothing else; a second call with other lengths reads its own."""
+    X = torch.rand((6, L, 13), device=dev)
+    fn = crp_cuda.fused_binary_crp_batch
+    for lens in ([0, 5, 9, 10, L - 3, L], [L, 1, 0, 17, 8, 300]):
+        l1 = torch.tensor(lens, dtype=torch.int32, device=dev)
+        l2 = l1.flip(0).contiguous()
+        before = fn.launches
+        _, l1e, l2e = fn(X, X, l1, l2)
+        assert fn.launches == before + 1
+        assert l1e.dtype == l2e.dtype == torch.int32
+        assert torch.equal(l1e, torch.clamp_min(l1 - 8, 0))
+        assert torch.equal(l2e, torch.clamp_min(l2 - 8, 0))
+
+
+def _tile_desc(seed: int, bi: int, bj: int, L: int, dev):
+    """Random row and column descriptors of a Serra09 tile on the card:
+    ragged lengths, among them 0 (a padding song, as on the mesh's card 0)
+    and lengths below the window m = 9; MFCCs with a large leading term,
+    as HTK energy."""
+    g = torch.Generator().manual_seed(seed)
+    n = bi + bj
+    length = torch.randint(L * 5 // 8, L + 1, (n,), generator=g)
+    length[::7] = 0
+    length[3::7] = 5
+    length[5::7] = L
+    f = {"chroma": torch.rand((n, L, 12), generator=g),
+         "mfcc": torch.randn((n, L, 13), generator=g),
+         "gchroma": torch.rand((n, 12), generator=g),
+         "length": length.to(torch.int32)}
+    f["mfcc"][..., 0] += 3000.0
+    f = {k: v.to(dev) for k, v in f.items()}
+    return ({k: v[:bi] for k, v in f.items()},
+            {k: v[bi:] for k, v in f.items()})
+
+
+@pytest.mark.parametrize("bi,bj,L,oti", [
+    (16, 16, 512, True), (240, 8, 512, True), (4, 6, 64, True),
+    (1, 8, 320, True), (8, 1, 576, True), (3, 5, 512, False)])
+def test_pair_operands_kernel_bit_equal_to_plain(dev, bi, bj, L, oti):
+    """The prep kernel gives the torch composition's operands and lengths
+    bit for bit: bi != bj, a query row (bi = 1), L 64 / 320 / 512 / 576,
+    zero and sub-window lengths, with and without the OTI roll; one launch,
+    counted in `score:prep_calls`."""
+    from acoss_tpu_torch.utils.profiling import stages
+
+    row, col = _tile_desc(bi * bj + L, bi, bj, L, dev)
+    shift = Serra09()._oti(row, col) if oti else None
+    args = (row["chroma"], col["chroma"], row["mfcc"], col["mfcc"],
+            row["length"], col["length"], shift)
+    fn = serra09_cuda.pair_operands_batch
+    was = stages.enabled
+    stages.enabled = True
+    try:
+        before = (fn.launches, stages.counters["score:prep_calls"])
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert (fn.launches, stages.counters["score:prep_calls"]) == (
+            before[0] + 1, before[1] + 1)
+    finally:
+        stages.enabled = was
+    want = serra09_cuda.pair_operands_ref(*args)
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nf,B", [(2, 256), (3, 1920), (1, 1), (4, 300)])
+def test_scores_epilogue_kernel_bit_equal_to_plain(dev, nf, B):
+    """The epilogue kernel divides as torch does, bit for bit, pairs with
+    l1e + l2e == 0 included; one launch."""
+    g = torch.Generator().manual_seed(nf * B)
+    q = [(torch.rand(B, generator=g) * 300).floor().to(dev) / 2
+         for _ in range(nf)]
+    d = [torch.rand(B, generator=g).to(dev) * 500 for _ in range(nf)]
+    l1e = torch.randint(0, 505, (B,), generator=g, dtype=torch.int32)
+    l2e = torch.randint(0, 505, (B,), generator=g, dtype=torch.int32)
+    l1e[::5] = 0
+    l2e[::10] = 0
+    l1e, l2e = l1e.to(dev), l2e.to(dev)
+    fn = serra09_cuda.scores_epilogue_batch
+    before = fn.launches
+    got = fn(q, d, l1e, l2e)
+    assert fn.launches == before + 1 and got.shape == (2, nf, B)
+    assert torch.equal(got, serra09_cuda.scores_epilogue_ref(q, d, l1e, l2e))
+
+
+def _serra09_tile(dev, tile: str):
+    """(algorithm, row, col) of a Serra09 tile: the 8 songs of a
+    synthetic corpus against themselves (with the ssms channel for
+    "corpus_ssms"), or random descriptors at a stream tile's 16 x 16 and
+    a mesh call's 240 x 8."""
+    if tile.startswith("corpus"):
+        ssms = tile == "corpus_ssms"
+        fs = make_synthetic_dataset(n_cliques=2 if ssms else 4,
+                                    clique_size=2, seed=int(ssms),
+                                    base_duration=300.0, beat_period=30.0)
+        algo = Serra09(do_ssms=ssms)
+        d = descriptors_from_numpy(algo.extract_descriptors(fs, device=dev),
+                                   dev)
+        return algo, d, d
+    bi, bj = map(int, tile.split("x"))
+    return (Serra09(), *_tile_desc(bi + bj, bi, bj, 512, dev))
+
+
+@pytest.mark.parametrize("tile", ["corpus", "16x16", "240x8",
+                                  "corpus_ssms"])
+def test_serra09_tile_kernel_path_equals_plain(dev, tile):
+    """The kernel path (prep, the fused CRP a channel, qmax and dmax on
+    each channel's CRPs, the epilogue; the binarizer for ssms) gives the
+    plain composition's scores bit for bit, with the launches that says."""
+    algo, row, col = _serra09_tile(dev, tile)
+    nf = len(algo._channels())
+    wrappers = (serra09_cuda.pair_operands_batch,
+                crp_cuda.fused_binary_crp_batch,
+                crp_cuda.binarize_matrix_batch,
+                alignment_cuda.qmax_batch_cuda,
+                alignment_cuda.dmax_batch_cuda,
+                serra09_cuda.scores_epilogue_batch)
+    before = [w.launches for w in wrappers]
+    got = algo.tile_scores(row, col)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [1, 2, nf - 2, nf, nf, 1]
+    want = algo.tile_scores(row, col, plain=True)
+    assert sorted(got) == sorted(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+    assert float(want["chroma_qmax"].max()) > 0
+
+
+#: Kernels a Serra09 tile call launches on the card: the OTI's eight
+#: torch kernels (`crp.get_oti`: the shift index's arange, subtraction and
+#: remainder, the circulant gather, matmul's two broadcast copies, the
+#: product, the argmax), the prep, the fused CRP twice, qmax and dmax
+#: twice, the epilogue.
+SERRA09_TILE_LAUNCHES = 16
+
+
+def test_serra09_tile_launches_under_the_profiler(dev):
+    """A warm 16 x 16 tile call launches at most SERRA09_TILE_LAUNCHES
+    kernels, counted by the profiler (copies and memsets aside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    algo, row, col = _serra09_tile(dev, "16x16")
+    algo.tile_scores(row, col)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        algo.tile_scores(row, col)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    assert 0 < len(names) <= SERRA09_TILE_LAUNCHES, "\n".join(
+        n[:80] for n in names)
 
 
 # line widths of the binarizer and kNN mask tests: a lane's last keys cut
@@ -497,7 +647,7 @@ def test_sweep_engine_on_the_card_equals_plain_sweep(dev, tmp_path, engine):
                                     device_resident=False))
         desc = dequantized(store)
     torch.cuda.synchronize()
-    assert alignment_cuda.qmax_batch_cuda.launches - before == 3
+    assert alignment_cuda.qmax_batch_cuda.launches - before == 2 * 3
     want = harness.run_pairwise(Serra09(), desc, n, device=dev)
     for k in want:
         assert np.array_equal(np.asarray(got[k]), want[k]), k
@@ -1097,8 +1247,8 @@ def _serving_corpus():
 def test_index_query_rows_equal_sweep_rows_on_the_card(dev):
     """A CoverIndex on the card answers the query rows of the sweep over
     the union bit for bit (queries and corpus from one extraction, so one
-    padded width), with qmax, dmax and the fused CRP launched once, once
-    and twice a corpus tile."""
+    padded width), with qmax, dmax and the fused CRP launched twice a
+    corpus tile (one call a channel)."""
     from acoss_tpu_torch.benchmarking.harness import run_pairwise
     from acoss_tpu_torch.serving import CoverIndex
 
@@ -1119,7 +1269,7 @@ def test_index_query_rows_equal_sweep_rows_on_the_card(dev):
     before = [w.launches for w in wrappers]
     got = index.query_descriptors({k: v[nc:] for k, v in desc.items()}, T)
     assert [w.launches - b for w, b in zip(wrappers, before)] == \
-        [index.n_tiles, index.n_tiles, 2 * index.n_tiles]
+        [2 * index.n_tiles] * 3
     for k in algo.SIMILARITY_TYPES:
         np.testing.assert_array_equal(got[k], D[k][nc:, :nc], err_msg=k)
 
@@ -1205,6 +1355,10 @@ def test_kernel_wrappers_keep_the_callers_device(dev):
         "knn_mask": lambda: crp_cuda.knn_mask_matrix_batch(M, lens // 8),
         "wcsmssm": lambda: crp_cuda.wcsmssm_batch(M, M, M, lens, lens,
                                                   lens // 8),
+        "pair_operands": lambda: serra09_cuda.pair_operands_batch(
+            X, X, X, X, lens, lens),
+        "scores_epilogue": lambda: serra09_cuda.scores_epilogue_batch(
+            [X[0, 0, :B]], [X[0, 1, :B]], lens, lens),
         "hmm_fb": lambda: hmm_cuda.chord_forward_backward(
             torch.rand(L, 25, generator=g).to(card),
             torch.rand(25, 25, generator=g).to(card)),

@@ -9,6 +9,7 @@ from tests import _torch_threads  # noqa: F401  (caps thread pools)
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,12 +19,14 @@ from acoss_tpu.benchmarking.harness import benchmark as jax_benchmark
 from acoss_tpu.benchmarking.harness import run_pairwise as jax_run_pairwise
 from acoss_tpu.data import make_synthetic_dataset
 from acoss_tpu.ops import alignment as jax_alignment
+from acoss_tpu.ops import crp as jax_crp
 from acoss_tpu_torch import cli
 from acoss_tpu_torch.benchmarking.algorithms import Serra09
 from acoss_tpu_torch.benchmarking.evaluation import eval_statistics
 from acoss_tpu_torch.benchmarking.harness import benchmark, run_pairwise
 from acoss_tpu_torch.convert import descriptors_from_numpy
 from acoss_tpu_torch.data import FeatureSet
+from acoss_tpu_torch.ops import serra09_cuda
 
 SIM_TYPES = ("chroma_qmax", "chroma_dmax", "mfcc_qmax", "mfcc_dmax")
 
@@ -199,3 +202,108 @@ def test_cli_benchmark_on_cpu(corpus, tmp_path, monkeypatch, capsys):
     assert [r.split(",")[0] for r in rows[1:]] == [
         f"Serra09_{k}" for k in SIM_TYPES]
     assert (tmp_path / "ck" / "Serra09_vrun_ckpt.npz").exists()
+
+
+def _tile_features(seed, bi, bj, L):
+    """Random row and column descriptors of a tile: lengths from 0 (a
+    padding song) and below the window m = 9 to L, MFCCs with a large
+    leading term, as HTK energy."""
+    rng = np.random.default_rng(seed)
+    n = bi + bj
+    length = rng.integers(L // 2, L + 1, n).astype(np.int32)
+    length[-3:] = [L, 5, 0]
+    f = {"chroma": rng.random((n, L, 12), np.float32),
+         "mfcc": rng.standard_normal((n, L, 13)).astype(np.float32),
+         "gchroma": rng.random((n, 12), np.float32),
+         "length": length}
+    f["mfcc"][..., 0] += 3000.0
+    return ({k: v[:bi] for k, v in f.items()},
+            {k: v[bi:] for k, v in f.items()})
+
+
+@pytest.mark.parametrize("bi,bj,L", [(4, 6, 64), (1, 8, 320), (8, 1, 512),
+                                     (3, 3, 576)])
+def test_pair_operands_ref_matches_jax(bi, bj, L):
+    """The pair operands' plain version (the prep kernel's contract) gives
+    the JAX package's fused-path operands bit for bit: each row song's
+    chroma rolled by the OTI towards each column song, the column songs'
+    chroma, both mfccs less the row song's first frame and zero past the
+    lengths, and the pairs' lengths; the OTI is the JAX package's."""
+    row, col = _tile_features(bi * 100 + bj + L, bi, bj, L)
+    oti = jax.vmap(jax.vmap(jax_crp.get_oti, in_axes=(None, 0)),
+                   in_axes=(0, None))(row["gchroma"], col["gchroma"])
+    Xch = jax.vmap(jax.vmap(jax_crp.transpose_chroma, in_axes=(None, 0)))(
+        row["chroma"], oti)
+    l1 = np.repeat(row["length"], bj)
+    l2 = np.tile(col["length"], bi)
+    Xm = jnp.repeat(row["mfcc"], bj, axis=0)
+    Ym = jnp.tile(col["mfcc"], (bi, 1, 1))
+    c = Xm[:, :1]
+    ar = np.arange(L)
+    want = [np.asarray(Xch).reshape(bi * bj, L, 12),
+            np.tile(col["chroma"], (bi, 1, 1)),
+            np.asarray(jnp.where((ar < l1[:, None])[..., None], Xm - c,
+                                 0.0)),
+            np.asarray(jnp.where((ar < l2[:, None])[..., None], Ym - c,
+                                 0.0)), l1, l2]
+    r, k = ({n: torch.from_numpy(v) for n, v in d.items()}
+            for d in (row, col))
+    port_oti = Serra09()._oti(r, k)
+    np.testing.assert_array_equal(port_oti.numpy(), np.asarray(oti))
+    got = serra09_cuda.pair_operands_ref(
+        r["chroma"], k["chroma"], r["mfcc"], k["mfcc"], r["length"],
+        k["length"], port_oti)
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert not want[3][l2 == 0].any() and np.abs(want[2]).max() > 1.0
+
+
+def test_prep_and_epilogue_wrappers_on_cpu_are_the_plain_versions():
+    """On CPU tensors both wrappers return their plain versions and launch
+    nothing; the epilogue divides each channel's scores by
+    max(l1e + l2e, 1)."""
+    row, col = ({n: torch.from_numpy(v) for n, v in d.items()}
+                for d in _tile_features(3, 2, 3, 64))
+    oti = Serra09()._oti(row, col)
+    args = (row["chroma"], col["chroma"], row["mfcc"], col["mfcc"],
+            row["length"], col["length"])
+    prep, epi = (serra09_cuda.pair_operands_batch,
+                 serra09_cuda.scores_epilogue_batch)
+    before = (prep.launches, epi.launches)
+    for o in (oti, None):
+        for g, w in zip(prep(*args, o),
+                        serra09_cuda.pair_operands_ref(*args, o)):
+            assert torch.equal(g, w)
+    l1e = torch.tensor([0, 3, 7], dtype=torch.int32)
+    l2e = torch.tensor([0, 0, 9], dtype=torch.int32)
+    q = [torch.tensor([0.0, 3.0, 5.0]), torch.tensor([1.0, 2.0, 4.0])]
+    d = [torch.tensor([2.0, 6.0, 1.0]), torch.tensor([0.5, 0.0, 8.0])]
+    got = epi(q, d, l1e, l2e)
+    assert torch.equal(got, serra09_cuda.scores_epilogue_ref(q, d, l1e, l2e))
+    assert torch.equal(got[0, 1], torch.tensor([1.0, 2.0 / 3.0, 0.25]))
+    assert (prep.launches, epi.launches) == before
+
+
+@pytest.mark.parametrize("do_ssms", [False, True])
+def test_channel_scores_equal_the_stacked_plain_scores(do_ssms):
+    """The CUDA path's composition with every kernel's plain version (the
+    pair operands, each channel's CRPs scored where its call left them,
+    the epilogue) gives `tile_scores(plain=True)`'s stacked scores bit for
+    bit, on a tile with bi != bj."""
+    fs = make_synthetic_dataset(n_cliques=3, clique_size=2, n_states=6,
+                                base_duration=30.0, seed=3)
+    algo = Serra09(do_ssms=do_ssms, downsample_fac=4, pad_to_multiple=16)
+    d = {k: torch.as_tensor(v) for k, v in
+         algo.extract_descriptors(fs, device="cpu").items()}
+    row = {k: v[1:6] for k, v in d.items()}
+    col = {k: v[0:3] for k, v in d.items()}
+    want = algo.tile_scores(row, col, plain=True)
+    if do_ssms:
+        row, col = algo._center_ssms(row, col)
+    qd = algo._channel_scores(row, col, plain=True)
+    assert qd.shape == (2, len(algo._channels()), 5, 3)
+    for k, name in enumerate(algo._channels()):
+        assert torch.equal(qd[0, k], want[f"{name}_qmax"]), name
+        assert torch.equal(qd[1, k], want[f"{name}_dmax"]), name
+    assert float(want["chroma_qmax"].max()) > 0
